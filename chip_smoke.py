@@ -25,19 +25,50 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                same step on the CPU;
   4. bench   — tpubody_torch.bench's flagship step at batch 512: frames/s
                and the per-layer split, from CUDA events after warm-up;
-  5. timing  — each kernel against its plain version, one PyTorch call
-               computing the same contractions, and its bound.
+  5. timing  — fused_lbs against its plain version, one PyTorch call
+               computing the same contractions, and its bound;
+  6. raster  — hold the fused raster kernel to its plain PyTorch version
+               on tables that _bin_fused builds: two frames of the video
+               clip at full width (1024^2, the humanoid avatar; the base
+               pass and each ladder rung; 3 and 6 channels), two random
+               64x128 scenes, a 24-channel attribute stack, and a scene
+               whose chunk budget overflows.  Gate: win equal at every
+               pixel, attributes within 1e-6 of the largest attribute;
+  7. video   — the animation path at full width through its entry point:
+               a humanoid avatar (6890 vertices, 13,524 faces) saved with
+               save_avatar, a seeded 64-frame AMASS-format clip, then
+               animate_from_amass(..., stride=1, size=1024) with the
+               defaults.  The launch counters are zeroed just before and
+               fused_raster must have launched (blocks x passes) times.
+               The frames handed to the writer are collected and checked
+               (64 frames of 1024x1024, body inside the projected bbox,
+               consecutive frames different).  Where cv2 is missing the
+               encoder, and only the encoder, is replaced by a frame
+               collector.  Run once more for 8 frames with
+               i420_transfer=False, crop_transfer=False;
+  8. oracle  — two frames through render_frames_tiled and through the
+               fragment renderer render_frames at 256^2: more than 99.5%
+               of values within 2e-2;
+  9. video timing — frames/s of a warm second pass of the video path and
+               CUDA-event times per layer; fused_raster against its plain
+               version and its bound.
 
 It then prints the kernel line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.  It needs one CUDA GPU and no network.
+``--phases a,b`` runs a subset (names: lbs, serve, bench, raster, video,
+oracle, vtiming, and the extra vprofile: a torch.profiler pass over the
+video path) and prints no result line: a development aid.
 """
 from __future__ import annotations
 
+import argparse
 import glob
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -54,6 +85,17 @@ SAME_BATCH_ATOL = 1e-5    # served vs the same batch applied directly
 BATCH1_VERT_ATOL = 0.1    # m; bf16 at batch 1 vs in a bucket (see below)
 CPU_HMR_ATOL = 1e-4       # fp32 HMR outputs, card vs CPU
 CPU_VERT_ATOL = 1e-4      # LBS, card vs CPU: the repo's vertex budget
+RASTER_ATTR_REL = 1e-6    # fused_raster attrs vs plain, of the largest attr
+ORACLE_ATOL = 2e-2        # tiled vs fragment renderer, per value
+ORACLE_AGREE = 0.995      # share of values that must agree
+# fused_raster, operations per face and pixel, counted from the kernel's
+# source: three edge functions of one multiply and two adds each (9), the
+# three a*px products shared by a thread's four pixels (0.75), three
+# comparisons (3); depth and key only where a pixel is covered (not
+# counted).
+RASTER_OPS_PER_FACE_PIXEL = 12.75
+VIDEO_FRAMES = 64
+VIDEO_SIZE = 1024
 
 
 def log(msg: str) -> None:
@@ -185,9 +227,8 @@ def phase_serve(dev):
         f" of sizes {[len(b) for b, _ in batches]} ({wall:.3f} s):"
         f" p50 {snap['latency_p50_ms']:.3f} ms,"
         f" p99 {snap['latency_p99_ms']:.3f} ms; launches {launches}")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise RuntimeError(f"kernels not launched on the main path: {missing}")
+    if launches["fused_lbs"] == 0:
+        raise RuntimeError("fused_lbs was not launched on the serving path")
 
     # Each future against the step applied directly to its image, in the
     # bucket batch the server formed for it: same inputs and shapes, so
@@ -314,11 +355,584 @@ def phase_timing(body, launches, main_err):
                          else "operations"),
         },
     }
-    return {"kernels": [entry]}
+    return entry
+
+
+# -- the animation/video path ------------------------------------------------
+def random_scene(H, W, n_faces, max_extent, seed, n_chan):
+    """Random triangles with bounded projected extent, some offscreen (the
+    scene generator of tests/test_pallas_raster.py)."""
+    rng = np.random.default_rng(seed)
+    V = n_faces
+    verts = np.stack([rng.uniform(-20, W + 20, V), rng.uniform(-20, H + 20, V),
+                      rng.uniform(1.0, 5.0, V)], 1).astype(np.float32)
+    faces = rng.integers(0, V, (n_faces, 3)).astype(np.int32)
+    tri = verts[faces]
+    cent = tri.mean(1, keepdims=True)
+    scale = np.minimum(
+        1.0, max_extent / (np.abs(tri[..., :2] - cent[..., :2])
+                           .max((1, 2), keepdims=True) * 2 + 1e-6))
+    tri = cent + (tri - cent) * scale
+    verts2 = tri.reshape(-1, 3).astype(np.float32)
+    faces2 = np.arange(n_faces * 3).reshape(n_faces, 3).astype(np.int32)
+    attrs = rng.uniform(size=(verts2.shape[0], n_chan)).astype(np.float32)
+    return verts2, faces2, attrs
+
+
+def make_avatar_and_clip(workdir):
+    """The humanoid avatar at SMPL's size, saved in the avatar pickle
+    schema, and a seeded 64-frame clip in AMASS format -> (avatar,
+    avatar_path, clip_path)."""
+    from tpubody_torch.mesh import rigging
+    from tpubody_torch.models import humanoid
+
+    raw = humanoid.humanoid_numpy(n_joints=24, n_verts=6890)
+    rng = np.random.default_rng(5)
+    V = raw["v_template"].shape[0]
+    avatar = rigging.avatar_from_numpy(
+        raw["v_template"], raw["weights"],
+        rng.uniform(0.3, 0.9, size=(V, 3)), raw["faces"],
+        raw["j_regressor"] @ raw["v_template"], raw["parents"])
+    avatar_path = os.path.join(workdir, "avatar.pkl")
+    rigging.save_avatar(avatar_path, avatar)
+
+    # Smooth joint angles of about 0.3 rad and a small root translation.
+    t = np.arange(VIDEO_FRAMES)[:, None] / VIDEO_FRAMES
+    amp = rng.uniform(-0.3, 0.3, size=(1, 66))
+    freq = rng.integers(1, 3, size=(1, 66))
+    phase = rng.uniform(0, 2 * np.pi, size=(1, 66))
+    poses = np.zeros((VIDEO_FRAMES, 156))
+    poses[:, :66] = amp * np.sin(2 * np.pi * freq * t + phase)
+    trans = 0.05 * np.sin(2 * np.pi * t + rng.uniform(0, 6, size=(1, 3)))
+    clip_path = os.path.join(workdir, "clip.npz")
+    np.savez(clip_path, poses=poses, trans=trans, mocap_framerate=30.0)
+    return avatar, avatar_path, clip_path
+
+
+class VideoSetup:
+    """The video path's inputs on the card: avatar, clip, render plan and
+    the skinned frames."""
+
+    def __init__(self, dev, workdir):
+        import torch
+
+        from tpubody_torch.io import motion
+        from tpubody_torch.mesh import rigging
+        from tpubody_torch.render import video
+
+        self.dev = dev
+        self.avatar, self.avatar_path, self.clip_path = \
+            make_avatar_and_clip(workdir)
+        self.clip = motion.read_amass(self.clip_path)
+        self.cam_t = np.array([0.0, 0.0, 2.5])
+        self.plan = video.plan_tiled_render(
+            self.avatar.v_template, self.avatar.faces, self.cam_t,
+            VIDEO_SIZE, VIDEO_SIZE, video.DEFAULT_FOCAL)
+
+        def on(x, dtype):
+            return torch.as_tensor(np.asarray(x, dtype), device=dev)
+
+        self.faces = on(self.avatar.faces, np.int32)
+        self.colors = on(self.avatar.color, np.float32)
+        self.cam = on(self.cam_t, np.float32)
+        # (faces, span_x, span_y, total_chunks) of the base pass and rungs
+        self.passes = [(on(self.plan["small_faces"], np.int32),
+                        self.plan["span_x"], self.plan["span_y"],
+                        self.plan["total_chunks"])]
+        for lf, spec in zip(self.plan["ladder_faces"],
+                            self.plan["ladder_specs"]):
+            self.passes.append((on(lf, np.int32), spec[0], spec[1], spec[3]))
+        self.verts = rigging.animate(self.avatar, self.clip.poses,
+                                     self.clip.trans, device=dev)
+
+    def screen_attrs(self, frames, shading):
+        from tpubody_torch.render import video
+
+        return video._screen_and_attrs(
+            self.verts[frames], self.faces, self.colors, self.cam,
+            VIDEO_SIZE, VIDEO_SIZE, video.DEFAULT_FOCAL, shading)
+
+
+def check_raster_case(name, verts, faces, attrs, H, W, total_chunks, sx, sy):
+    """Bin, run the kernel and its plain version on the same table, and
+    hold them together -> (attr max |d|, overflow, hits)."""
+    import torch
+
+    from tpubody_torch.render import raster, tiled_raster as TR
+
+    table, cstarts, nvalid, overflow, meta = TR._bin_fused(
+        verts, faces, attrs, H, W, total_chunks, sx, sy)
+    fb, dl = meta["fb"], meta["depth_levels"]
+    win, attr = TR.fused_raster(table, cstarts, H, W, fb, dl)
+    torch.cuda.synchronize()
+    win_p, attr_p = TR.fused_raster_reference(table, cstarts, H, W, fb, dl)
+    C = attrs.shape[-1]
+    if win.shape != (verts.shape[0], H, W) or \
+            attr.shape != (verts.shape[0], C, H, W):
+        raise RuntimeError(f"{name}: shapes {win.shape} {attr.shape}")
+    n_diff = int((win != win_p).sum())
+    hits = int((win != raster.INT32_MAX).sum())
+    err = (attr - attr_p).abs().max().item()
+    bar = RASTER_ATTR_REL * max(attr_p.abs().max().item(), 1e-30)
+    ok = n_diff == 0 and err <= bar and bool(torch.isfinite(attr).all())
+    log(f"  {name:34s} C={C:2d} chunks={int(nvalid.sum()):6d}"
+        f" overflow={int(overflow.sum()):4d} hits={hits:8d}"
+        f" win diffs={n_diff} attr max|d|={err:.3e}"
+        f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"fused_raster disagrees with its plain version: "
+                           f"{name}")
+    return err, int(overflow.sum()), hits
+
+
+def phase_raster_kernels(setup):
+    import torch
+
+    dev = setup.dev
+    worst = 0.0
+    # (a) two frames of the clip at full width, every pass, both shadings.
+    for shading in ("gouraud", "phong"):
+        screen, attrs = setup.screen_attrs([0, 37], shading)
+        for i, (faces, sx, sy, tc) in enumerate(setup.passes):
+            name = f"clip 1024^2 {shading} pass {i} F={faces.shape[0]}"
+            err, ov, hits = check_raster_case(
+                name, screen, faces, attrs, VIDEO_SIZE, VIDEO_SIZE, tc, sx,
+                sy)
+            worst = max(worst, err)
+            if hits == 0:
+                raise RuntimeError(f"{name}: nothing was covered")
+    # (b) random scenes, (c) a 24-channel stack.
+    for seed, n_faces, ext, C in ((4, 40, 12, 6), (5, 30, 10, 3),
+                                  (6, 40, 12, 24)):
+        v, f, a = random_scene(64, 128, n_faces, ext, seed, C)
+        err, ov, hits = check_raster_case(
+            f"random scene seed {seed} 64x128",
+            torch.as_tensor(v, device=dev)[None], torch.as_tensor(f, device=dev),
+            torch.as_tensor(a, device=dev)[None], 64, 128, 8 * 5, 2, 5)
+        worst = max(worst, err)
+        if ov or not hits:
+            raise RuntimeError("random scene: unexpected overflow or no hit")
+    # (d) 400 faces piled on one tile (13 chunks) with a budget of 8.
+    rng = np.random.default_rng(3)
+    v = np.stack([rng.uniform(4, 100, 1200), rng.uniform(1, 6, 1200),
+                  rng.uniform(1, 2, 1200)], 1).astype(np.float32)
+    f = np.arange(1200).reshape(400, 3).astype(np.int32)
+    a = rng.uniform(size=(1200, 3)).astype(np.float32)
+    err, ov, hits = check_raster_case(
+        "overflowing budget 64x128",
+        torch.as_tensor(v, device=dev)[None], torch.as_tensor(f, device=dev),
+        torch.as_tensor(a, device=dev)[None], 64, 128, 8, 2, 5)
+    if ov == 0:
+        raise RuntimeError("the overflow case dropped no face")
+    return max(worst, err)
+
+
+class FrameCollector:
+    """Stands in for the MP4 encoder where cv2 is missing, and records the
+    frames handed to the writer either way (the methods of
+    tpubody_torch.render.video.VideoWriter)."""
+
+    frames = []
+    inner_cls = None      # the real VideoWriter where cv2 imports
+
+    def __init__(self, path, fps=30.0, size=(VIDEO_SIZE, VIDEO_SIZE)):
+        self.path = path
+        self.inner = (FrameCollector.inner_cls(path, fps=fps, size=size)
+                      if FrameCollector.inner_cls else None)
+
+    def write(self, frame):
+        from tpubody_torch.render import video
+
+        FrameCollector.frames.append(("rgb", video.quantize_u8(frame).copy()))
+        if self.inner:
+            self.inner.write(frame)
+
+    def write_i420(self, planes):
+        FrameCollector.frames.append(("i420", np.array(planes)))
+        if self.inner:
+            self.inner.write_i420(planes)
+
+    def close(self):
+        if self.inner:
+            self.inner.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def i420_luma(planes):
+    return planes[: planes.shape[0] * 2 // 3]
+
+
+def check_frames(frames, n, bbox, what):
+    """n frames of 1024x1024, not all background, body pixels inside the
+    projected bbox, consecutive frames different."""
+    if len(frames) != n:
+        raise RuntimeError(f"{what}: {len(frames)} frames, expected {n}")
+    x0, x1, y0, y1 = bbox
+    prev = None
+    for kind, f in frames:
+        if kind == "i420":
+            if f.shape != (VIDEO_SIZE * 3 // 2, VIDEO_SIZE) or \
+                    f.dtype != np.uint8:
+                raise RuntimeError(f"{what}: I420 frame {f.shape} {f.dtype}")
+            body = i420_luma(f) < 235          # white background: Y = 235
+        else:
+            if f.shape != (VIDEO_SIZE, VIDEO_SIZE, 3) or f.dtype != np.uint8:
+                raise RuntimeError(f"{what}: RGB frame {f.shape} {f.dtype}")
+            body = (f < 255).any(axis=-1)
+        ys, xs = np.nonzero(body)
+        if ys.size < 10000:
+            raise RuntimeError(f"{what}: a frame shows no body")
+        if xs.min() < x0 - 1 or xs.max() > x1 + 1 or ys.min() < y0 - 1 \
+                or ys.max() > y1 + 1:
+            raise RuntimeError(
+                f"{what}: body pixels x [{xs.min()}, {xs.max()}] y "
+                f"[{ys.min()}, {ys.max()}] outside the projected bbox {bbox}")
+        if prev is not None and np.array_equal(prev, f):
+            raise RuntimeError(f"{what}: two consecutive frames are equal")
+        prev = f
+
+
+def phase_video(setup, workdir):
+    import torch
+
+    from tpubody_torch import native
+    from tpubody_torch.pipelines import animate
+    from tpubody_torch.render import video
+
+    try:
+        import cv2  # noqa: F401
+        have_cv2 = True
+    except ImportError:
+        have_cv2 = False
+    log(f"  cv2 {'imports: frames are encoded to MP4' if have_cv2 else 'is missing: the encoder is replaced by a frame collector'}")
+    FrameCollector.inner_cls = video.VideoWriter if have_cv2 else None
+    real_writer = video.VideoWriter
+    video.VideoWriter = FrameCollector
+    try:
+        bb = video.screen_bbox(setup.verts, setup.cam, VIDEO_SIZE, VIDEO_SIZE,
+                               video.DEFAULT_FOCAL).cpu().numpy()
+        bbox = (float(bb[0]), float(bb[1]), float(bb[2]), float(bb[3]))
+        passes = len(setup.passes)
+        log(f"  plan: base {setup.passes[0][0].shape[0]} faces, spans "
+            f"{setup.passes[0][1]}x{setup.passes[0][2]}, "
+            f"{setup.passes[0][3]} chunks; rungs "
+            f"{[(int(p[0].shape[0]), p[3]) for p in setup.passes[1:]]}; "
+            f"fragment buckets {len(setup.plan['large_buckets'])}")
+        if passes != 3 or setup.plan["large_buckets"]:
+            raise RuntimeError("the plan is not base + two ladder rungs")
+
+        out = os.path.join(workdir, "clip.mp4")
+        results = {}
+        for run in ("cold", "warm"):
+            FrameCollector.frames = []
+            native.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            animate.animate_from_amass(setup.avatar_path, setup.clip_path,
+                                       out, stride=1, size=VIDEO_SIZE)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(native.LAUNCHES)
+            want = (VIDEO_FRAMES // 8) * passes
+            log(f"  {run}: {VIDEO_FRAMES} frames in {wall:.3f} s = "
+                f"{VIDEO_FRAMES / wall:.2f} frames/s; launches {launches}")
+            if launches["fused_raster"] != want:
+                raise RuntimeError(
+                    f"fused_raster launched {launches['fused_raster']} times "
+                    f"on the video path, expected {want}")
+            kinds = {k for k, _ in FrameCollector.frames}
+            check_frames(FrameCollector.frames, VIDEO_FRAMES, bbox,
+                         f"animate_from_amass ({run})")
+            if have_cv2 and os.path.getsize(out) < 10000:
+                raise RuntimeError("the MP4 is missing or trivial")
+            results[run] = dict(wall_s=wall, fps=VIDEO_FRAMES / wall,
+                                launches=launches, transfer=sorted(kinds))
+        if have_cv2:
+            log(f"  MP4: {os.path.getsize(out)} bytes")
+
+        # The uint8-RGB full-frame transfer, 8 frames.
+        from tpubody_torch.io import motion
+
+        FrameCollector.frames = []
+        clip8 = motion.MotionClip(setup.clip.poses[:8], setup.clip.trans[:8],
+                                  setup.clip.fps)
+        animate.animate_video(setup.avatar, clip8,
+                              os.path.join(workdir, "clip8.mp4"),
+                              size=VIDEO_SIZE, i420_transfer=False,
+                              crop_transfer=False)
+        check_frames(FrameCollector.frames, 8, bbox, "animate_video (RGB)")
+        if {k for k, _ in FrameCollector.frames} != {"rgb"}:
+            raise RuntimeError("the RGB transfer produced I420 frames")
+        log("  8 frames with i420_transfer=False, crop_transfer=False: ok")
+    finally:
+        video.VideoWriter = real_writer
+        FrameCollector.frames = []
+    results["have_cv2"] = have_cv2
+    return results
+
+
+def phase_oracle(setup):
+    import torch
+
+    from tpubody_torch.pipelines import animate
+    from tpubody_torch.render import video
+
+    size, focal = 256, 625.0
+    dev = setup.dev
+    av = setup.avatar
+    plan, pt, _ = animate._tiled_plan(av.v_template, av.faces, setup.cam_t,
+                                      size, focal, 2, dev)
+    bg = torch.ones((size, size, 3), dtype=torch.float32, device=dev)
+    verts = setup.verts[[0, VIDEO_FRAMES - 1]]
+    tiled = video.render_frames_tiled(
+        verts, pt["small_faces"], pt["large_buckets"], setup.faces,
+        setup.colors, setup.cam, bg, height=size, width=size, focal=focal,
+        max_chunks=plan["max_chunks"], span_x=plan["span_x"],
+        span_y=plan["span_y"], total_chunks=plan["total_chunks"],
+        large_windows=plan["large_windows"], ladder_faces=pt["ladder_faces"],
+        ladder_specs=plan["ladder_specs"], to_uint8=False)
+    w = video.auto_window(av.v_template, av.faces, setup.cam_t, size, size,
+                          focal)
+    frag = video.render_frames(verts, setup.faces, setup.colors, setup.cam,
+                               bg, height=size, width=size, focal=focal,
+                               window=w)
+    torch.cuda.synchronize()
+    agree = ((tiled - frag).abs() <= ORACLE_ATOL).float().mean().item()
+    body = (frag < 1.0).any(dim=-1).float().mean().item()
+    log(f"  tiled vs fragment renderer at {size}^2 (window {w}): "
+        f"{agree * 100:.3f}% of values within {ORACLE_ATOL}; body covers "
+        f"{body * 100:.1f}% of the frame")
+    if agree <= ORACLE_AGREE or body < 0.02:
+        raise RuntimeError("the tiled renderer disagrees with the fragment "
+                           "renderer")
+    return agree
+
+
+class LayerTimer:
+    """CUDA-event spans around the layers of a render block, taken inside
+    one run of the block: each wrapped function records an event on the
+    stream before and after its call, so a layer's time is the card's time
+    between the two, launch gaps included, and the layers are disjoint
+    parts of the block's total."""
+
+    def __init__(self):
+        self.spans = []               # (name, start event, end event)
+
+    def wrap(self, name, fn):
+        import torch
+
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.spans.append((name, start, end))
+            return out
+
+        return timed
+
+    def ms(self):
+        """name -> list of span times, in call order."""
+        out = {}
+        for name, start, end in self.spans:
+            out.setdefault(name, []).append(start.elapsed_time(end))
+        return out
+
+
+def phase_video_timing(setup, workdir, video_res, raster_err):
+    """CUDA-event times per layer of one 8-frame block, and the kernel
+    against its plain version and its bound."""
+    import torch
+
+    from tpubody_torch.mesh import rigging
+    from tpubody_torch.pipelines import animate
+    from tpubody_torch.render import tiled_raster as TR
+    from tpubody_torch.render import video
+
+    dev = setup.dev
+    block = setup.verts[:8].contiguous()
+    H = W = VIDEO_SIZE
+    n_pass = len(setup.passes)
+    split = {}
+    split["skinning_64_frames"] = time_ms(lambda: rigging.animate(
+        setup.avatar, setup.clip.poses, setup.clip.trans, device=dev),
+        iters=10, warmup=2)
+
+    # The block's layers, inside the block: the same render_block that
+    # animate_video drives, with its layers wrapped in event spans.
+    render_block, chunk, i420 = animate._block_renderer(
+        setup.avatar, None, setup.cam_t, VIDEO_SIZE, video.DEFAULT_FOCAL,
+        None, 8, i420=True, device=dev)
+    iters = 10
+    for _ in range(2):
+        render_block(block)
+    timer = LayerTimer()
+    patched = [(video, "_screen_and_attrs", "transform_normals"),
+               (TR, "_bin_fused", "binning"),
+               (TR, "fused_raster", "fused_raster"),
+               (video, "_composite", "composite"),
+               (video, "_shade_and_pack", "shade_i420")]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patched]
+    try:
+        for mod, attr, name in patched:
+            setattr(mod, attr, timer.wrap(name, getattr(mod, attr)))
+        split["render_block"] = time_ms(lambda: render_block(block),
+                                        iters=iters, warmup=0)
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    spans = timer.ms()
+    for name, times in spans.items():
+        split[name] = sum(times) / iters
+    # what is left: the depth rebuilt from the winning key in
+    # render_attrs_tiled, and the gaps between the layers
+    split["depth_from_key_and_gaps"] = split["render_block"] - sum(
+        split[name] for name in spans)
+    if len(spans["binning"]) != iters * n_pass:
+        raise RuntimeError("the block did not bin once per pass")
+
+    # The kernel alone, per pass: back-to-back launches on the block's own
+    # tables (L2 warm), its plain version, and its bound.
+    screen, attrs = setup.screen_attrs(slice(0, 8), "gouraud")
+    passes = []
+    for i, (faces, sx, sy, tc) in enumerate(setup.passes):
+        table, cstarts, nvalid, _, meta = TR._bin_fused(
+            screen, faces, attrs, H, W, tc, sx, sy)
+        fb, dl = meta["fb"], meta["depth_levels"]
+        k_ms = time_ms(lambda: TR.fused_raster(table, cstarts, H, W, fb, dl),
+                       iters=20, warmup=3)
+        p_ms = time_ms(lambda: TR.fused_raster_reference(
+            table, cstarts, H, W, fb, dl), iters=2, warmup=1)
+        B, MAXC, CF, G, _ = table.shape
+        chunks = int(torch.clamp(nvalid, max=MAXC).sum())
+        nbytes = chunks * CF * G * 3 * 4 + cstarts.numel() * 4 \
+            + B * H * W * 4 * (1 + G - 5)
+        ops = chunks * CF * TR.LP * RASTER_OPS_PER_FACE_PIXEL
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
+        ops_ms = ops / PEAK_FP32 * 1e3
+        passes.append(dict(
+            faces=int(faces.shape[0]), spans=[sx, sy], total_chunks=tc,
+            valid_chunks=chunks,
+            bin_ms_in_block=sum(spans["binning"][i::n_pass]) / iters,
+            ms_in_block=sum(spans["fused_raster"][i::n_pass]) / iters,
+            ms=k_ms, plain_ms=p_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations"))
+
+    frames = render_block(block)
+    host = torch.empty(frames.shape, dtype=frames.dtype, pin_memory=True)
+    split["copy_to_host"] = time_ms(
+        lambda: host.copy_(frames, non_blocking=True), iters=10, warmup=2)
+    if video_res["have_cv2"]:
+        planes = host.numpy()
+        with video.VideoWriter(os.path.join(workdir, "mux.mp4"),
+                               size=(VIDEO_SIZE, VIDEO_SIZE)) as wr:
+            t0 = time.perf_counter()
+            for f in planes:
+                wr.write_i420(f)
+            split["mux_host_8_frames"] = (time.perf_counter() - t0) * 1e3
+    else:
+        split["mux_host_8_frames"] = None
+    res = dict(frames_per_s=video_res["warm"]["fps"],
+               frames_per_s_cold=video_res["cold"]["fps"],
+               frames=VIDEO_FRAMES, size=VIDEO_SIZE, block=chunk,
+               transfer=video_res["warm"]["transfer"],
+               have_cv2=video_res["have_cv2"],
+               block_split_ms=split, passes=passes)
+    log(f"  video: {res['frames_per_s']:.2f} frames/s warm "
+        f"({res['frames_per_s_cold']:.2f} cold); ms per 8-frame block: "
+        + ", ".join(f"{k} {v:.3f}" if v is not None else f"{k} not measured"
+                    for k, v in split.items()))
+    for i, p in enumerate(passes):
+        log(f"  pass {i}: {p}")
+    log(json.dumps({"video": res}))
+
+    base = passes[0]
+    return {
+        "name": "fused_raster",
+        "route": "cuda",
+        "source": "tpubody_torch/csrc/fused_raster.cu",
+        "replaces": "tpubody/render/pallas_raster.py:600",
+        "replaces_fn": "tpubody/render/pallas_raster.py::_fused_kernel",
+        "shape": {"B": 8, "H": H, "W": W, "C": 3, "CF": TR.CF_FUSED,
+                  "faces": base["faces"], "valid_chunks": base["valid_chunks"],
+                  "pass": "base (pass 0 of 3)"},
+        "launches": video_res["warm"]["launches"]["fused_raster"],
+        "max_abs_err": raster_err,
+        "max_err": raster_err,
+        "ms": base["ms"],
+        "kernel_ms": base["ms"],
+        "plain_ms": base["plain_ms"],
+        "bound_ms": base["bound_ms"],
+        "bound_by": base["bound_by"],
+        "library_ms": None,
+        "passes": passes,
+    }
+
+
+def phase_video_profile(setup, workdir):
+    """torch.profiler over one warm pass of the video path: the card's busy
+    share of the wall time and its time by kernel.  Not part of the default
+    run (``--phases video,vprofile``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpubody_torch.pipelines import animate
+
+    out = os.path.join(workdir, "profile.mp4")
+
+    def run():
+        animate.animate_from_amass(setup.avatar_path, setup.clip_path, out,
+                                   stride=1, size=VIDEO_SIZE)
+        torch.cuda.synchronize()
+
+    run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_time_total > 0
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    if busy_ms <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    log(f"  profiled pass: {VIDEO_FRAMES} frames in {wall_ms:.1f} ms under "
+        f"the profiler; device kernels busy {busy_ms:.1f} ms = "
+        f"{busy_ms / wall_ms * 100:.1f}% of the wall time (idle "
+        f"{100 - busy_ms / wall_ms * 100:.1f}%)")
+    for key, ms, count in rows[:12]:
+        log(f"    {ms:9.3f} ms {count:6d} x  {key[:90]}")
+    log(json.dumps({"video_profile": {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "top": [{"kernel": k[:120], "ms": ms, "count": c}
+                for k, ms, c in rows[:12]]}}))
+
+
+ALL_PHASES = ("lbs", "serve", "bench", "raster", "video", "oracle", "vtiming")
+EXTRA_PHASES = ("vprofile",)
 
 
 def main() -> int:
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(ALL_PHASES),
+                    help="comma-separated subset of " + ",".join(ALL_PHASES))
+    args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = set(phases) - set(ALL_PHASES) - set(EXTRA_PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+    full = set(phases) == set(ALL_PHASES)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -343,23 +957,54 @@ def main() -> int:
                     log("  " + line.strip())
     native.library()
 
-    log("phase 2: kernels vs plain versions")
-    body, main_err = phase_kernels(dev)
+    kernels = []
+    if "lbs" in phases:
+        log("phase 2: fused_lbs vs its plain version")
+        body, main_err = phase_kernels(dev)
+    if "serve" in phases:
+        log("phase 3: main path through InferenceServer -> hmr_smpl_step")
+        launches, _ = phase_serve(dev)
+    if "bench" in phases:
+        log("phase 4: throughput")
+        phase_bench(dev)
+    if "lbs" in phases and "serve" in phases:
+        log("phase 5: fused_lbs timing")
+        kernels.append(phase_timing(body, launches, main_err))
 
-    log("phase 3: main path through InferenceServer -> hmr_smpl_step")
-    launches, _ = phase_serve(dev)
-
-    log("phase 4: throughput")
-    phase_bench(dev)
-
-    log("phase 5: kernel timing")
-    line = phase_timing(body, launches, main_err)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        if set(phases) & {"raster", "video", "oracle", "vtiming",
+                          "vprofile"}:
+            setup = VideoSetup(dev, workdir)
+        raster_err = None
+        if "raster" in phases:
+            log("phase 6: fused_raster vs its plain version")
+            raster_err = phase_raster_kernels(setup)
+        if "video" in phases:
+            log("phase 7: video path through animate_from_amass at "
+                f"{VIDEO_SIZE}^2, {VIDEO_FRAMES} frames")
+            video_res = phase_video(setup, workdir)
+        if "oracle" in phases:
+            log("phase 8: tiled renderer vs the fragment renderer")
+            phase_oracle(setup)
+        if "vtiming" in phases and "video" in phases:
+            log("phase 9: video timing")
+            kernels.append(phase_video_timing(setup, workdir, video_res,
+                                              raster_err))
+        if "vprofile" in phases:
+            log("extra phase: profile of the video path")
+            phase_video_profile(setup, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    print(json.dumps(line))
+    if not full:
+        log(f"phases {phases} passed on {smi} (subset: no result line)")
+        return 0
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

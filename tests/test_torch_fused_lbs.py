@@ -180,6 +180,7 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("precision", fused_lbs.PRECISIONS)
 def test_cuda_kernel_matches_plain(data, cuda, precision):
     from tpubody_torch import native
