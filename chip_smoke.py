@@ -53,11 +53,42 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                CUDA-event times per layer; fused_raster against its plain
                version and its bound.
 
+  10. zbuffer — hold the z-buffer kernel to its plain PyTorch version on
+               tables that bin_faces builds: the body-map scene at full
+               width (the fitted 6890-vertex SMPLH body at 1024^2, focal
+               5000; front, back and all faces), two random 64x128 scenes
+               of two frames, a scene under 64 faces (the wrapped key) and
+               one whose tiles overflow.  Gate: equal at every pixel.  On
+               the body-map scene its face ids are also held to the fused
+               raster kernel's (at least 99.9% of the pixels);
+  11. reconstruct — the device half of the reconstruct pipeline at full
+               width: the in-memory demo fixture (humanoid(52, 6890) and
+               humanoid(24, 6890), the demo pose and betas, focal 5000 at
+               1024^2; the photo mask rendered at other betas, so the warp
+               moves pixels), through the helper of
+               tpubody_torch.pipelines.reconstruct with the cache off, and
+               the front normal map once more through rasterize_tiled.  The
+               launch counters are zeroed just before and read just after:
+               fused_raster 3 launches, zbuffer 1.  Gates: background 1.0
+               and weights summing to 1 in the value map, the warped map
+               filling the photo mask, PCG's relative residual under 1e-3,
+               finite depths that are zero outside the mask, the
+               rasterize_tiled map equal to the fused one's within 2e-3 on
+               99.9% of the pixels.  The same path at 256^2 on the card
+               and on the CPU, within the tests' tolerances, and through
+               the public reconstruct(), which must raise at the stitch;
+  12. rtiming — CUDA-event spans of the stages and the warp's substages in
+               a second run of the helper, the card's busy share of
+               normal2depth and of the warp under torch.profiler, the
+               z-buffer kernel alone against its plain version and its
+               bound, and fused_raster at 24 channels.
+
 It then prints the kernel line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.  It needs one CUDA GPU and no network.
 ``--phases a,b`` runs a subset (names: lbs, serve, bench, raster, video,
-oracle, vtiming, and the extra vprofile: a torch.profiler pass over the
-video path) and prints no result line: a development aid.
+oracle, vtiming, zbuffer, reconstruct, rtiming, and the extra vprofile: a
+torch.profiler pass over the video path) and prints no result line: a
+development aid.
 """
 from __future__ import annotations
 
@@ -96,6 +127,26 @@ ORACLE_AGREE = 0.995      # share of values that must agree
 RASTER_OPS_PER_FACE_PIXEL = 12.75
 VIDEO_FRAMES = 64
 VIDEO_SIZE = 1024
+RECON_SIZE = 1024
+RECON_SMALL = 256         # the card-vs-CPU run of the reconstruct path
+FACE_ID_AGREE = 0.999     # zbuffer vs fused_raster face ids, share of pixels
+TILED_MAP_ATOL = 2e-3     # rasterize_tiled (exact barycentrics) vs fused
+TILED_MAP_AGREE = 0.999
+PCG_RELRES = 1e-3
+# The 24 rendered weights sum to 1 inside the body: within 1e-4 at 1024^2.
+# At 256^2 every face of the 6890-vertex body is smaller than a pixel, the
+# affine planes' slopes (~ 1 / area) are large, and their float32 rounding
+# reaches the sum: 1e-3 there.
+WSUM_ATOL = 1e-4
+WSUM_ATOL_SMALL = 1e-3
+DEPTH_REL = 1e-3          # card vs CPU depth, of the depth range
+WEIGHT_ATOL = 1e-3        # card vs CPU stitch weights (they cross as f16)
+CHAIN_MEAN_REL = 1e-2     # free-running chain: mean depth difference
+TIGHT_SHARE = 0.999       # share of pixels held to the tight bars
+# The demo fixture of the reconstruct pipeline: body shape (girth +2.5
+# keeps the forearms several pixels wide) and the shape of the "photo".
+DEMO_BETAS = np.array([0.0, 2.5, 0, 0, 0, 0, 0, 0, 0, 0], np.float64)
+PHOTO_BETAS = np.array([0.6, 1.5, 0, 0, 0, 0, 0, 0, 0, 0], np.float64)
 
 
 def log(msg: str) -> None:
@@ -917,7 +968,545 @@ def phase_video_profile(setup, workdir):
                 for k, ms, c in rows[:12]]}}))
 
 
-ALL_PHASES = ("lbs", "serve", "bench", "raster", "video", "oracle", "vtiming")
+# -- the reconstruct path ----------------------------------------------------
+def demo_pose(n_joints=52, seed=0):
+    """The demo fixture's pose: upright in image coordinates, arms a little
+    below the T-pose and clear of the torso, knees slightly bent, a small
+    seeded jitter."""
+    rng = np.random.default_rng(seed)
+    pose = np.zeros((n_joints, 3))
+    pose[0] = [np.pi, 0.0, 0.0]
+    pose[16] = [0.0, 0.0, -0.22]
+    pose[17] = [0.0, 0.0, 0.22]
+    pose[18] = [0.0, 0.0, -0.12]
+    pose[19] = [0.0, 0.0, 0.12]
+    pose[4] = [0.08, 0.0, 0.0]
+    pose[5] = [0.08, 0.0, 0.0]
+    pose[1:22] += rng.normal(scale=0.015, size=(21, 3))
+    return pose
+
+
+class ReconSetup:
+    """The demo fixture in memory on ``dev``: the two humanoid models at
+    SMPL's size, the fit (pose, betas, a camera centred on the posed body:
+    focal 5000 at 1024^2), the posed vertices, and the photo mask: the same
+    body at PHOTO_BETAS through the same camera."""
+
+    def __init__(self, dev, size, n_verts=6890):
+        import torch
+
+        from tpubody_torch.models import humanoid, smpl
+        from tpubody_torch.pipelines import reconstruct as rec
+        from tpubody_torch.render import bodymaps
+
+        self.dev, self.size = dev, size
+        self.smplh = humanoid.humanoid(52, n_verts, device=dev)
+        self.smpl = humanoid.humanoid(24, n_verts, device=dev)
+        pose = demo_pose(52, 0)
+
+        def posed(betas):
+            return smpl.forward(
+                self.smplh,
+                torch.as_tensor(pose, dtype=torch.float32, device=dev),
+                torch.as_tensor(betas, dtype=torch.float32, device=dev)).verts
+
+        self.verts = posed(DEMO_BETAS)
+        v = self.verts.cpu().numpy().astype(np.float64)
+        focal = 5000.0 * size / 1024.0
+        center = np.array([size / 2.0, size / 2.0])
+        c = (v.min(axis=0) + v.max(axis=0)) / 2.0
+        extent = float((v.max(axis=0) - v.min(axis=0))[:2].max()) * 1.35
+        cam_t = np.array([-c[0], -c[1],
+                          extent * focal / (0.85 * size) - c[2]])
+        self.fit = rec.FitResult(
+            shape=DEMO_BETAS, pose=pose.reshape(-1), camera_center=center,
+            camera_rotation=np.eye(3), camera_translation=cam_t,
+            camera_fx=focal)
+        photo = bodymaps.render_body_maps(
+            posed(PHOTO_BETAS), self.smplh.faces, self.smpl.weights, cam_t,
+            center, size, size, focal=focal, device=dev)
+        self.mask = photo.mask.cpu().numpy()
+        self.mask_u8 = self.mask.astype(np.uint8) * 255
+
+    def scene(self):
+        """The body-map passes on the card: screen-space vertices, and
+        (name, faces, attrs) of the front, back and all-faces pass."""
+        import torch
+
+        from tpubody_torch.render import bodymaps, raster
+
+        dev = self.dev
+
+        def f32(x):
+            return torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                                   device=dev)
+
+        screen = bodymaps.project_to_screen(
+            self.verts, f32(self.fit.camera_translation),
+            f32(self.fit.camera_center), self.fit.camera_fx)
+        faces_np = np.asarray(self.smplh.faces).astype(np.int32)
+        front, back = bodymaps._front_back_faces(self.verts, faces_np)
+        allf = torch.as_tensor(faces_np, device=dev)
+        return screen, [
+            ("front", front,
+             (raster.vertex_normals(self.verts, front) + 1.0) * 0.5),
+            ("back", back,
+             (raster.vertex_normals(self.verts, back) + 1.0) * 0.5),
+            ("all", allf, self.smpl.weights.to(dev))]
+
+    def run(self, workdir, timer=None, detail=None, cache=False):
+        """The helper of the reconstruct pipeline on this fixture ->
+        ((J_2d, stitch weights, front depth, back depth), keep, timer)."""
+        from tpubody_torch.pipelines import reconstruct as rec
+        from tpubody_torch.utils.cache import StageCache
+        from tpubody_torch.utils.profiling import StageTimer
+
+        timer = timer or StageTimer()
+        keep = {}
+        out = rec._device_stages(
+            self.mask_u8, self.fit, self.smplh, self.smpl,
+            StageCache(workdir, enabled=cache), timer, detail, keep=keep)
+        return out, keep, timer
+
+
+def zbuffer_plan(screen, faces, H, W):
+    """Spans, a chunk capacity under which no tile of this pass overflows,
+    and the fused path's chunk budget ->
+    (span_x, span_y, max_chunks, total_chunks)."""
+    import torch
+
+    from tpubody_torch.render import bodymaps, tiled_raster as TR
+
+    sx, sy, tc = bodymaps._tiled_plan(screen, faces, H, W)
+    nc = 4
+    while int(TR.bin_faces(screen[None], faces, H, W, nc, sx, sy)[2].sum()):
+        nc *= 2
+        if nc > 32:
+            raise RuntimeError("a tile holds more than 4096 faces")
+    torch.cuda.synchronize()
+    return sx, sy, nc, tc
+
+
+def check_zbuffer_case(name, verts, faces, H, W, nc, sx, sy):
+    """Bin, run the kernel and its plain version on the same table and hold
+    them together -> (max |key difference|, overflow, hits, zbuf)."""
+    import torch
+
+    from tpubody_torch.render import raster, tiled_raster as TR
+
+    table, nchunks, overflow = TR.bin_faces(verts, faces, H, W, nc, sx, sy)
+    fb = raster._face_bits(int(faces.shape[0]))
+    dl = 1 << (31 - fb)
+    z = TR.zbuffer(table, nchunks, H, W, fb, dl)
+    torch.cuda.synchronize()
+    z_p = TR.zbuffer_reference(table, nchunks, H, W, fb, dl)
+    if z.shape != (verts.shape[0], H, W) or z.dtype != torch.int32:
+        raise RuntimeError(f"{name}: zbuf {tuple(z.shape)} {z.dtype}")
+    n_diff = int((z != z_p).sum())
+    err = float((z.to(torch.int64) - z_p.to(torch.int64)).abs().max())
+    hits = int((z != raster.INT32_MAX).sum())
+    log(f"  {name:34s} NC={nc:2d} chunks={int(nchunks.sum()):5d}"
+        f" overflow={int(overflow.sum()):4d} hits={hits:8d}"
+        f" diffs={n_diff} {'ok' if n_diff == 0 else 'FAIL'}")
+    if n_diff:
+        raise RuntimeError(f"zbuffer disagrees with its plain version: "
+                           f"{name}")
+    return err, int(overflow.sum()), hits, z
+
+
+def phase_zbuffer(recon):
+    """-> the largest |key difference| between the kernel and its plain
+    version over the cases (0, or the phase has raised)."""
+    import torch
+
+    from tpubody_torch.render import raster, tiled_raster as TR
+
+    dev = recon.dev
+    H = W = recon.size
+    total = 0.0
+    # (a) the body-map scene at full width, and the fused kernel's face ids
+    screen, passes = recon.scene()
+    for name, faces, attrs in passes:
+        sx, sy, nc, tc = zbuffer_plan(screen, faces, H, W)
+        err, ov, hits, z = check_zbuffer_case(
+            f"body maps {H}^2 {name} F={faces.shape[0]}", screen[None],
+            faces, H, W, nc, sx, sy)
+        total = max(total, err)
+        if hits < 0.03 * H * W:
+            raise RuntimeError(f"body maps {name}: nothing was covered")
+        table, cstarts, _, ov2, meta = TR._bin_fused(
+            screen[None], faces, attrs[None, :, :3].contiguous(), H, W, tc,
+            sx, sy)
+        win, _ = TR.fused_raster(table, cstarts, H, W, meta["fb"],
+                                 meta["depth_levels"])
+        fid_mask = (1 << meta["fb"]) - 1
+        none = raster.INT32_MAX
+        same = ((z == none) & (win == none)) | \
+            ((z != none) & (win != none) & ((z & fid_mask) == (win & fid_mask)))
+        share = same.float().mean().item()
+        keys = (z == win).float().mean().item()
+        log(f"    face ids equal to fused_raster's on {share * 100:.4f}% of "
+            f"the pixels (whole keys on {keys * 100:.4f}%; fused overflow "
+            f"{int(ov2.sum())})")
+        if share < FACE_ID_AGREE:
+            raise RuntimeError("zbuffer and fused_raster disagree on the "
+                               "winning faces")
+    # (b) random scenes of two frames, (c) under 64 faces: the wrapped key
+    for seed, n_faces, ext, nc in ((0, 40, 12, 3), (4, 40, 12, 2),
+                                   (7, 90, 10, 1)):
+        v, f, _ = random_scene(64, 128, n_faces, ext, seed, 3)
+        vb = torch.as_tensor(np.stack([v, v + np.float32([3.0, 1.0, 0.0])]),
+                             device=dev)
+        err, ov, hits, _ = check_zbuffer_case(
+            f"random scene seed {seed} 64x128 x2", vb,
+            torch.as_tensor(f, device=dev), 64, 128, nc, 2, 5)
+        total = max(total, err)
+        if ov or not hits:
+            raise RuntimeError("random scene: unexpected overflow or no hit")
+    # (d) 400 faces piled on one tile with a capacity of 128 and of 256
+    rng = np.random.default_rng(3)
+    v = np.stack([rng.uniform(4, 100, 1200), rng.uniform(1, 6, 1200),
+                  rng.uniform(1, 2, 1200)], 1).astype(np.float32)
+    f = np.arange(1200).reshape(400, 3).astype(np.int32)
+    for nc in (1, 2):
+        err, ov, hits, _ = check_zbuffer_case(
+            "overflowing tile 64x128", torch.as_tensor(v, device=dev)[None],
+            torch.as_tensor(f, device=dev), 64, 128, nc, 2, 5)
+        total = max(total, err)
+        if ov == 0:
+            raise RuntimeError("the overflow case dropped no face")
+    return total
+
+
+def check_recon_outputs(recon, out, keep, what, wsum_atol=WSUM_ATOL):
+    """The gates of the reconstruct path on one run of the helper."""
+    import torch
+
+    J_2d, weights, front, back = out
+    S = recon.size
+    mask = recon.mask
+    value = keep["value"]
+    if tuple(value.shape) != (S, S, 30) or J_2d.shape != (24, 2):
+        raise RuntimeError(f"{what}: shapes {tuple(value.shape)} {J_2d.shape}")
+    body = ~(value[..., :3] == 1.0).all(dim=-1)
+    share = body.float().mean().item()
+    bg = value[~body]
+    wsum = value[..., 6:][body].sum(dim=-1)
+    werr = (wsum - 1.0).abs().max().item()
+    if not (0.05 < share < 0.6) or not bool((bg[:, :3] == 1.0).all()) \
+            or not bool((bg[:, 6:] == 1.0).all()) or werr > wsum_atol:
+        raise RuntimeError(f"{what}: value map: body share {share}, weights "
+                           f"sum off by {werr}")
+    warp = keep["warp"]
+    m = torch.as_tensor(mask, device=warp.device)
+    filled = (warp.abs().sum(dim=-1) > 0)
+    if not bool(filled[m].all()) or bool((warp[~m] != 0).any()):
+        raise RuntimeError(f"{what}: the warped map does not fill the mask")
+    moved = int((body.cpu().numpy() != mask).sum())
+    pcg = keep["pcg"]
+    if not pcg["relative_residual"] < PCG_RELRES:
+        raise RuntimeError(f"{what}: PCG relative residual "
+                           f"{pcg['relative_residual']}")
+    for d in (front, back):
+        if d.shape != (S, S) or not np.isfinite(d).all() \
+                or (d[~mask] != 0).any() or not d[mask].max() > 0:
+            raise RuntimeError(f"{what}: bad depth map")
+    if weights.shape != (S, S, 24) or not np.isfinite(weights).all():
+        raise RuntimeError(f"{what}: bad stitch weights")
+    log(f"  {what}: body {share * 100:.2f}% of the frame, photo mask "
+        f"{mask.mean() * 100:.2f}% ({moved} pixels differ); weights sum to 1 "
+        f"within {werr:.2e}; PCG {pcg['iterations']} iterations, relative "
+        f"residual {pcg['relative_residual']:.3e}; depth range front "
+        f"{front.max():.3f} back {back.max():.3f}")
+
+
+def phase_reconstruct(recon, workdir):
+    import torch
+
+    from tpubody_torch import native
+    from tpubody_torch.pipelines import reconstruct as rec
+    from tpubody_torch.render import tiled_raster as TR
+
+    dev = recon.dev
+    S = recon.size
+    screen, passes = recon.scene()
+    _, front_faces, front_attrs = passes[0]
+    sx, sy, nc, _ = zbuffer_plan(screen, front_faces, S, S)
+
+    # The main path: the helper with the cache off, then the front normal
+    # map once more through the z-buffer rasterizer.
+    native.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, keep, timer = recon.run(workdir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tiled, overflow = TR.rasterize_tiled(
+        screen, front_faces, front_attrs, S, S, max_chunks=nc, span_x=sx,
+        span_y=sy, return_overflow=True)
+    torch.cuda.synchronize()
+    launches = dict(native.LAUNCHES)
+    log(f"  helper at {S}^2 (cold): {wall:.3f} s; launches {launches}")
+    log("  " + timer.report().replace("\n", "\n  "))
+    if launches["fused_raster"] != 3 or launches["zbuffer"] != 1:
+        raise RuntimeError(f"the reconstruct path launched {launches}, "
+                           f"expected fused_raster 3 and zbuffer 1")
+    check_recon_outputs(recon, out, keep, f"reconstruct {S}^2")
+
+    # rasterize_tiled's map against the fused kernel's front normal map
+    fused = keep["value"][..., :3]
+    fmask = ~(fused == 1.0).all(dim=-1)
+    tmap = torch.where(tiled.mask[..., None], tiled.attrs,
+                       torch.ones_like(tiled.attrs))
+    same_mask = (tiled.mask == fmask).float().mean().item()
+    close = ((tmap - fused).abs().amax(dim=-1) <= TILED_MAP_ATOL
+             ).float().mean().item()
+    log(f"  rasterize_tiled front normals vs the fused map: coverage equal "
+        f"on {same_mask * 100:.4f}% of the pixels, values within "
+        f"{TILED_MAP_ATOL} on {close * 100:.4f}%; overflow {int(overflow)}")
+    if int(overflow) or min(same_mask, close) < TILED_MAP_AGREE:
+        raise RuntimeError("rasterize_tiled disagrees with the fused map")
+
+    # A small input: the same path on the card and on the CPU, fp32.
+    small = ReconSetup(dev, RECON_SMALL)
+    small_cpu = ReconSetup("cpu", RECON_SMALL)
+    if not np.array_equal(small.mask, small_cpu.mask):
+        n = int((small.mask != small_cpu.mask).sum())
+        log(f"  {RECON_SMALL}^2: the photo masks differ on {n} pixels; the "
+            f"CPU's is used for both")
+        small.mask, small.mask_u8 = small_cpu.mask, small_cpu.mask_u8
+    out_g, keep_g, _ = small.run(workdir)
+    out_c, keep_c, _ = small_cpu.run(workdir)
+    check_recon_outputs(small, out_g, keep_g, f"card {RECON_SMALL}^2",
+                        WSUM_ATOL_SMALL)
+    rng = float(out_c[2].max() - out_c[2].min())
+    sil_g = (keep_g["value"][..., :3] == 1.0).all(dim=-1).cpu()
+    sil_c = (keep_c["value"][..., :3] == 1.0).all(dim=-1)
+    same_sil = bool(torch.equal(sil_g, sil_c))
+    # Tight bars on TIGHT_SHARE of the pixels, not all: where a warped
+    # position lies within float32 rounding of a pixel boundary, the MVC's
+    # transcendentals (libm on the CPU, CUDA's on the card) round it to
+    # neighbouring pixels, so single pixels of the scatter take their value
+    # from the next source pixel, and the depth bends a little around them.
+    d_front = np.abs(out_g[2] - out_c[2])
+    d_back = np.abs(out_g[3] - out_c[3])
+    d_w = np.abs(out_g[1] - out_c[1]).max(axis=-1)
+    depth_ok = float(((d_front <= DEPTH_REL * rng)
+                      & (d_back <= DEPTH_REL * rng)).mean())
+    w_ok = float((d_w <= WEIGHT_ATOL).mean())
+    log(f"  fp32 card vs CPU at {RECON_SMALL}^2: silhouettes "
+        f"{'equal' if same_sil else 'differ'}; depth max|d| front "
+        f"{d_front.max():.3e} back {d_back.max():.3e} (range {rng:.3f}), "
+        f"mean {d_front.mean():.3e}, within {DEPTH_REL} of the range on "
+        f"{depth_ok * 100:.4f}% of the pixels; stitch weights max|d| "
+        f"{d_w.max():.3e}, within {WEIGHT_ATOL} on {w_ok * 100:.4f}%; PCG "
+        f"iterations {keep_g['pcg']['iterations']} vs "
+        f"{keep_c['pcg']['iterations']}")
+    if not np.array_equal(out_g[0], out_c[0]):
+        raise RuntimeError("projected joints differ between card and CPU")
+    if max(d_front.mean(), d_back.mean()) > CHAIN_MEAN_REL * rng:
+        raise RuntimeError("the card's depth disagrees with the CPU's")
+    if same_sil and (min(depth_ok, w_ok) < TIGHT_SHARE
+                     or max(d_front.max(), d_back.max())
+                     > CHAIN_MEAN_REL * rng
+                     or abs(keep_g["pcg"]["iterations"]
+                            - keep_c["pcg"]["iterations"]) > 2):
+        raise RuntimeError("the card disagrees with the CPU on equal "
+                           "silhouettes")
+
+    # The public entry point runs the same stages and stops at the stitch.
+    rgb = np.zeros((RECON_SMALL, RECON_SMALL, 3), np.uint8)
+    try:
+        rec.reconstruct(rgb, rgb, small.mask_u8, small.fit, small.smplh,
+                        small.smpl, cache=False)
+    except NotImplementedError as e:
+        log(f"  reconstruct() ran its device stages and raised: "
+            f"{str(e)[:60]}...")
+    else:
+        raise RuntimeError("reconstruct() returned: the stitch stage is "
+                           "not ported")
+    return dict(launches=launches, wall_s=wall, pcg=keep["pcg"])
+
+
+class EventStageTimer:
+    """The interface of tpubody_torch.utils.profiling.StageTimer with
+    CUDA-event spans: an event is recorded on the stream when a stage
+    begins and when it ends, nothing synchronises in between, and a
+    stage's time is the card's clock between the two (the host's work and
+    the launch gaps inside the stage included)."""
+
+    def __init__(self):
+        self.records = []
+        self.spans = []
+
+    def stage(self, name):
+        import contextlib
+
+        import torch
+
+        @contextlib.contextmanager
+        def span():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield
+            end.record()
+            self.spans.append((name, start, end))
+
+        return span()
+
+    def ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        out = {}
+        for name, start, end in self.spans:
+            out[name] = out.get(name, 0.0) + start.elapsed_time(end)
+        return out
+
+
+def device_busy(fn):
+    """Run fn under torch.profiler -> (device busy ms, number of device
+    kernels and copies, the five largest rows)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_time_total > 0
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    if busy <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return busy, sum(r[2] for r in rows), rows[:5]
+
+
+def phase_recon_timing(recon, workdir, recon_res, zbuffer_diffs):
+    """Stage and substage times of a warm run of the helper, the card's
+    busy share of its two long stages, and the two raster kernels alone at
+    the body-map shapes."""
+    import torch
+
+    from tpubody_torch.image import warp as warp_lib
+    from tpubody_torch.render import raster, tiled_raster as TR
+    from tpubody_torch.solve import normal2depth as n2d
+
+    dev = recon.dev
+    S = recon.size
+    timer = EventStageTimer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, keep, _ = recon.run(workdir, timer=timer, detail=timer)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    stages = timer.ms()
+    log(f"  helper at {S}^2 (warm): {wall_ms:.1f} ms on the host's clock; "
+        f"CUDA-event spans, ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+
+    # The card's busy share of the two long stages.
+    value, mask_dev = keep["value"], torch.as_tensor(recon.mask, device=dev)
+    warped6 = keep["warp"][..., :6].contiguous()
+    busy = {}
+    for name, fn in (
+            ("normal2depth", lambda: n2d.normal2depth(warped6, mask_dev)),
+            ("warp", lambda: warp_lib.warp_stage(recon.mask_u8, value))):
+        fn()
+        span_ms = time_ms(fn, iters=2, warmup=0)
+        busy_ms, count, top = device_busy(fn)
+        busy[name] = dict(span_ms=span_ms, device_busy_ms=busy_ms,
+                          device_ops=count,
+                          gap_share=1.0 - busy_ms / span_ms)
+        log(f"  {name}: {span_ms:.3f} ms a run; under the profiler {count} "
+            f"device kernels and copies busy {busy_ms:.3f} ms: "
+            f"{(1 - busy_ms / span_ms) * 100:.1f}% of the stage is gaps")
+        for key, ms, c in top:
+            log(f"    {ms:9.3f} ms {c:6d} x  {key[:90]}")
+
+    # The kernels alone at the body-map shapes (back to back, L2 warm).
+    screen, passes = recon.scene()
+    zb, fused = [], []
+    for name, faces, attrs in passes:
+        sx, sy, nc, tc = zbuffer_plan(screen, faces, S, S)
+        table, nchunks, _ = TR.bin_faces(screen[None], faces, S, S, nc, sx,
+                                         sy)
+        fb = raster._face_bits(int(faces.shape[0]))
+        dl = 1 << (31 - fb)
+        k_ms = time_ms(lambda: TR.zbuffer(table, nchunks, S, S, fb, dl),
+                       iters=50, warmup=5)
+        p_ms = time_ms(lambda: TR.zbuffer_reference(table, nchunks, S, S, fb,
+                                                    dl), iters=3, warmup=1)
+        bin_ms = time_ms(lambda: TR.bin_faces(screen[None], faces, S, S, nc,
+                                              sx, sy), iters=5, warmup=1)
+        chunks = int(nchunks.sum())
+        nbytes = chunks * 5 * TR.CF * 4 * 4 + nchunks.numel() * 4 + S * S * 4
+        ops = chunks * TR.CF * TR.LP * RASTER_OPS_PER_FACE_PIXEL
+        bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+        zb.append(dict(
+            name=name, faces=int(faces.shape[0]), spans=[sx, sy],
+            max_chunks=nc, live_chunks=chunks,
+            live_tiles=int((nchunks > 0).sum()), table_mb=table.numel() * 4e-6,
+            ms=k_ms, plain_ms=p_ms, bin_ms=bin_ms, bytes_ms=bytes_ms,
+            ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations"))
+
+        ftab, cstarts, nvalid, _, meta = TR._bin_fused(
+            screen[None], faces, attrs[None].contiguous(), S, S, tc, sx, sy)
+        ffb, fdl = meta["fb"], meta["depth_levels"]
+        fk_ms = time_ms(lambda: TR.fused_raster(ftab, cstarts, S, S, ffb,
+                                                fdl), iters=50, warmup=5)
+        fp_ms = time_ms(lambda: TR.fused_raster_reference(
+            ftab, cstarts, S, S, ffb, fdl), iters=2, warmup=1)
+        _, MAXC, CFf, G, _ = ftab.shape
+        fchunks = int(torch.clamp(nvalid, max=MAXC).sum())
+        fbytes = fchunks * CFf * G * 3 * 4 + cstarts.numel() * 4 \
+            + S * S * 4 * (1 + G - 5)
+        fops = fchunks * CFf * TR.LP * RASTER_OPS_PER_FACE_PIXEL
+        fb_ms, fo_ms = fbytes / PEAK_BYTES * 1e3, fops / PEAK_FP32 * 1e3
+        fused.append(dict(
+            name=name, C=G - 5, total_chunks=tc, valid_chunks=fchunks,
+            ms=fk_ms, plain_ms=fp_ms, bytes_ms=fb_ms, ops_ms=fo_ms,
+            bound_ms=max(fb_ms, fo_ms),
+            bound_by="bytes" if fb_ms >= fo_ms else "operations"))
+    for p in zb:
+        log(f"  zbuffer {p}")
+    for p in fused:
+        log(f"  fused_raster {p}")
+    res = dict(size=S, wall_ms_warm=wall_ms, wall_s_cold=recon_res["wall_s"],
+               stage_ms=stages, busy=busy, pcg=recon_res["pcg"], zbuffer=zb,
+               fused_raster=fused)
+    log(json.dumps({"reconstruct": res}))
+
+    allp = zb[-1]
+    entry = {
+        "name": "zbuffer",
+        "route": "cuda",
+        "source": "tpubody_torch/csrc/zbuffer.cu",
+        "replaces": "tpubody/render/pallas_raster.py:231",
+        "replaces_fn": "tpubody/render/pallas_raster.py::_raster_kernel",
+        "shape": {"B": 1, "H": S, "W": S, "CF": TR.CF,
+                  "faces": allp["faces"], "max_chunks": allp["max_chunks"],
+                  "live_chunks": allp["live_chunks"],
+                  "pass": "all faces (the front pass is the one launched "
+                          "on the main path)"},
+        "launches": recon_res["launches"]["zbuffer"],
+        "max_abs_err": zbuffer_diffs,
+        "ms": allp["ms"],
+        "plain_ms": allp["plain_ms"],
+        "bound_ms": allp["bound_ms"],
+        "bound_by": allp["bound_by"],
+        "library_ms": None,
+        "passes": zb,
+    }
+    return entry, fused
+
+
+ALL_PHASES = ("lbs", "serve", "bench", "raster", "video", "oracle", "vtiming",
+              "zbuffer", "reconstruct", "rtiming")
 EXTRA_PHASES = ("vprofile",)
 
 
@@ -994,6 +1583,26 @@ def main() -> int:
         if "vprofile" in phases:
             log("extra phase: profile of the video path")
             phase_video_profile(setup, workdir)
+        if set(phases) & {"zbuffer", "reconstruct", "rtiming"}:
+            recon = ReconSetup(dev, RECON_SIZE)
+        zbuffer_diffs = None
+        if "zbuffer" in phases:
+            log("phase 10: zbuffer vs its plain version")
+            zbuffer_diffs = phase_zbuffer(recon)
+        if "reconstruct" in phases:
+            log(f"phase 11: reconstruct path at {RECON_SIZE}^2, 6890 "
+                f"vertices")
+            recon_res = phase_reconstruct(recon, workdir)
+        if "rtiming" in phases and "reconstruct" in phases:
+            log("phase 12: reconstruct timing")
+            entry, fused24 = phase_recon_timing(recon, workdir, recon_res,
+                                                zbuffer_diffs)
+            for k in kernels:
+                if k["name"] == "fused_raster":
+                    k["launches_reconstruct"] = \
+                        recon_res["launches"]["fused_raster"]
+                    k["body_map_passes"] = fused24
+            kernels.append(entry)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -22,7 +22,12 @@ MODULES = [
     "tpubody_torch.core.fused_lbs",
     "tpubody_torch.core.lbs",
     "tpubody_torch.core.rotations",
+    "tpubody_torch.image.boundary_match",
+    "tpubody_torch.image.contours",
+    "tpubody_torch.image.morphology",
+    "tpubody_torch.image.mvc",
     "tpubody_torch.image.ops",
+    "tpubody_torch.image.warp",
     "tpubody_torch.io.motion",
     "tpubody_torch.mesh.decimate",
     "tpubody_torch.mesh.rigging",
@@ -32,11 +37,16 @@ MODULES = [
     "tpubody_torch.models.smpl",
     "tpubody_torch.pipelines.animate",
     "tpubody_torch.pipelines.hmr_infer",
+    "tpubody_torch.pipelines.reconstruct",
     "tpubody_torch.pipelines.serving",
+    "tpubody_torch.render.bodymaps",
     "tpubody_torch.render.camera",
     "tpubody_torch.render.raster",
     "tpubody_torch.render.tiled_raster",
     "tpubody_torch.render.video",
+    "tpubody_torch.solve.normal2depth",
+    "tpubody_torch.utils.cache",
+    "tpubody_torch.utils.profiling",
 ]
 
 CODE = r"""

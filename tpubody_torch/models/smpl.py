@@ -7,8 +7,9 @@ the fused LBS kernel (:mod:`tpubody_torch.core.fused_lbs`).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tpubody_torch.core import fused_lbs
@@ -104,3 +105,53 @@ def forward_batch_verts(
 def regress_joints(model: BodyModelParams, verts: torch.Tensor) -> torch.Tensor:
     """3D joints from posed vertices: j_regressor (J, V) x verts (..., V, 3)."""
     return torch.matmul(model.j_regressor, verts)
+
+
+def face_normals_z(verts: torch.Tensor, faces) -> torch.Tensor:
+    """Z-component of (unnormalized) face normals, vectorized.
+
+    Matches the sign convention of the reference's per-face loop
+    (models/smplh_np.py:141-155): z = m_x*n_y - n_x*m_y with m = v1-v0,
+    n = v2-v1.  verts (..., V, 3), faces (F, 3).
+    """
+    f = torch.as_tensor(np.asarray(faces), dtype=torch.int64,
+                        device=verts.device)
+    v0 = verts[..., f[:, 0], :]
+    v1 = verts[..., f[:, 1], :]
+    v2 = verts[..., f[:, 2], :]
+    m = v1 - v0
+    n = v2 - v1
+    return m[..., 0] * n[..., 1] - n[..., 0] * m[..., 1]
+
+
+def divide_face(
+    verts: np.ndarray, faces: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray,
+           np.ndarray]:
+    """Split a mesh into front-facing and back-facing halves (host side:
+    the output shapes depend on the data).
+
+    Returns ``(front_faces, front_verts, front_index, back_faces,
+    back_verts, back_index)`` where faces are re-indexed into their own
+    vertex arrays and ``*_index`` maps local -> original vertex ids, ordered
+    by first appearance in face order (the reference's ordering contract,
+    models/smplh_np.py:126-182).  Front is z <= 0 of
+    :func:`face_normals_z`.
+    """
+    verts = np.asarray(verts)
+    faces = np.asarray(faces)
+    z = face_normals_z(torch.as_tensor(verts), faces).numpy()
+
+    def _half(sel_faces: np.ndarray):
+        flat = sel_faces.reshape(-1)
+        # Unique by first appearance: order unique ids by their first flat
+        # position.
+        uniq, first = np.unique(flat, return_index=True)
+        index = uniq[np.argsort(first)].astype(np.int64)
+        remap = np.full(verts.shape[0], -1, dtype=np.int64)
+        remap[index] = np.arange(index.shape[0])
+        return remap[sel_faces], verts[index], index
+
+    ff, fv, fi = _half(faces[z <= 0])
+    bf, bv, bi = _half(faces[z > 0])
+    return ff, fv, fi, bf, bv, bi
