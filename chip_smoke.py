@@ -83,10 +83,44 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                z-buffer kernel alone against its plain version and its
                bound, and fused_raster at 24 channels.
 
+  13. stage   — hold the fused residual-stage kernel to its plain PyTorch
+               version on the card, TF32 off: the four small shapes of
+               tests/test_pallas_resnet.py (3 blocks with a downsample at
+               12x12, 2 identity blocks at 8x8, a single block at 10x10, 2
+               blocks at 11x19, all with 4 features), a zero input, and
+               full width at batch 8 (stage 1: 56^2, 64 -> 256 channels, 3
+               blocks; stage 2 tail: 28^2, 512 channels, 3 blocks) with
+               seeded weights and BatchNorm statistics.  Gate, on every
+               block alone and on the small chains: max |d| within 2 bf16
+               ulps of the largest output (2^-7 of it) and at least 99% of
+               the elements equal bit for bit: both round h1, h2 and y to
+               bf16 at the same places and differ only in the order of
+               their f32 sums.  A full-width chain of three: 4 ulps;
+  14. backbone — the fused stage on the full-width serving model:
+               create_hmr(dtype=bf16) (ResNet-50 at (3, 4, 6, 3)) with
+               seeded BatchNorm statistics, 512 images of 224^2 through the
+               model's own stem, then fuse_stage(layer1, [0, 1, 2]) ->
+               run_stage against layer1 by the library's bf16
+               convolutions, layer2[0] by the library, and
+               fuse_stage(layer2, [1, 2, 3]) -> run_stage against
+               layer2[1:]: max |d| / max |ref| < 2e-2 (the bar of
+               tests/test_pallas_resnet.py).  The launch counters are
+               zeroed just before and fused_stage must have launched 6
+               times.  The same two outputs are then held to the plain
+               version on the same inputs and weights, all 512 images in
+               chunks of 8 (the gates of phase 13, block by block on the
+               first chunk), which also times the plain version at that
+               batch.  Then tpubody_torch.bench.fused_stage(1) and (2)
+               (kernel and library ms at batch 512), the bound,
+               bench.backbone_split of the flagship
+               step, and the s2d stem against conv7 (fp32 within 1e-4, and
+               both stems' ms in bf16).
+
 It then prints the kernel line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.  It needs one CUDA GPU and no network.
 ``--phases a,b`` runs a subset (names: lbs, serve, bench, raster, video,
-oracle, vtiming, zbuffer, reconstruct, rtiming, and the extra vprofile: a
+oracle, vtiming, zbuffer, reconstruct, rtiming, stage, backbone, and the
+extra vprofile: a
 torch.profiler pass over the video path) and prints no result line: a
 development aid.
 """
@@ -145,6 +179,28 @@ CHAIN_MEAN_REL = 1e-2     # free-running chain: mean depth difference
 TIGHT_SHARE = 0.999       # share of pixels held to the tight bars
 # The demo fixture of the reconstruct pipeline: body shape (girth +2.5
 # keeps the forearms several pixels wide) and the shape of the "photo".
+BACKBONE_BATCH = 512
+# fused_stage vs its plain version.  Both round h1, h2 and y to bf16 at the
+# same places and differ in the order of their f32 sums, so an element can
+# land on the other side of a rounding boundary.  One block on the same
+# input bits: within 2 bf16 ulps of the largest output, 99% of the elements
+# equal bit for bit (measured: 1 ulp; 99.58% to 99.98% at full width, 100%
+# at 4 features).  That is the gate that binds, and it is applied to every
+# block of every case, at full width too.  A chain compounds the
+# difference: a 1-ulp change of one input moves C_mid sums of h1, each of
+# which feeds 9 * C_mid sums of h2, so after three blocks at full width
+# 97.3% (stage 1) and 85.1% (stage 2's tail) of the elements were equal, 2
+# ulps apart at most, where two evaluations of the plain version itself
+# (the card's convolutions and the CPU's) agreed on 99.4% and 98.3%.  The
+# share of equal elements of a full-width chain depends on the weights and
+# says nothing a block's does not, so it is printed and not gated: a
+# full-width chain is held to 4 ulps, the small chains (as every single
+# block) to 2 ulps and 99%.
+STAGE_EQUAL = 0.99        # share of elements equal bit for bit
+STAGE_CHAIN_ULPS = 4      # full-width chain of three blocks
+STAGE_CHUNK = 8           # images a call of the plain version at batch 512
+STAGE_LIB_REL = 2e-2      # fused_stage vs the library's bf16 chain
+STEM_ATOL = 1e-4          # s2d vs conv7 stem, fp32 HMR outputs
 DEMO_BETAS = np.array([0.0, 2.5, 0, 0, 0, 0, 0, 0, 0, 0], np.float64)
 PHOTO_BETAS = np.array([0.6, 1.5, 0, 0, 0, 0, 0, 0, 0, 0], np.float64)
 
@@ -341,7 +397,8 @@ def phase_bench(dev):
 
     res = bench.run(batch=512, iters=20, device=dev)
     log(f"  bench: {res['value']:.1f} frames/s at batch 512"
-        f" ({res['step_ms']:.3f} ms/step); split ms {res['split_ms']}")
+        f" ({res['step_ms']:.3f} ms/step); split ms {res['split_ms']};"
+        f" backbone split ms {res['backbone_split_ms']}")
     log(json.dumps(res))
     return res
 
@@ -1505,8 +1562,304 @@ def phase_recon_timing(recon, workdir, recon_res, zbuffer_diffs):
     return entry, fused
 
 
+# -- the fused residual stage ------------------------------------------------
+def seeded_chain(c_in, feats, n, seed, full_width):
+    """n stride-1 Bottlenecks of the port on the CPU in float32.  Small
+    chains draw every weight and BatchNorm statistic uniformly from [0.05,
+    0.4] (tests/test_pallas_resnet.py); full-width ones take the model's
+    seeded initialisation and seeded BatchNorm statistics."""
+    import torch
+
+    from tpubody_torch import bench
+    from tpubody_torch.models import hmr
+
+    mods = []
+    for _ in range(n):
+        mods.append(hmr.Bottleneck(c_in, feats, 1))
+        c_in = feats * 4
+    chain = torch.nn.Sequential(*mods).eval()
+    if full_width:
+        hmr.init_weights(chain, seed)
+        bench.randomize_batchnorm(chain, seed)
+    else:
+        rng = np.random.default_rng(seed)
+        with torch.no_grad():
+            for t in chain.state_dict().values():
+                if t.dtype.is_floating_point:
+                    t.copy_(torch.as_tensor(
+                        rng.uniform(0.05, 0.4, tuple(t.shape)), dtype=t.dtype))
+    return chain
+
+
+def ulps2(scale):
+    """Two bf16 ulps at the binade of `scale`."""
+    return 2.0 * 2.0 ** (np.floor(np.log2(scale)) - 7)
+
+
+def block_by_block(x_nhwc, fused):
+    """Each block alone, on the plain version's input to it: what one launch
+    computes, held to what the plain version computes from the same bits.
+    -> (largest difference in units of 2 ulps of that block's largest
+    output, smallest share of elements equal bit for bit)."""
+    import torch
+
+    from tpubody_torch.models import fused_resnet as FR
+
+    h, worst_err, worst_equal = x_nhwc.to(torch.bfloat16), 0.0, 1.0
+    for blk in fused.blocks():
+        one = FR.FusedStage(*blk, *[getattr(fused, f)
+                                    for f in FR.FIELDS[8:]], n_rest=0)
+        a = FR.run_stage(h, one).float()
+        h = FR.run_stage_reference(h, one)
+        d = (a - h.float()).abs()
+        worst_err = max(worst_err, d.max().item()
+                        / ulps2(h.float().abs().max().item()))
+        worst_equal = min(worst_equal, (d == 0).float().mean().item())
+    return worst_err, worst_equal
+
+
+def phase_stage(dev):
+    import torch
+
+    from tpubody_torch import native
+    from tpubody_torch.models import fused_resnet as FR
+
+    # name, (B, H, W, C_in), features, blocks, x seed, weight seed, kind
+    cases = [
+        ("3 blocks, downsample 12x12", (2, 12, 12, 8), 4, 3, 1, 0, "small"),
+        ("2 blocks, identity 8x8", (2, 8, 8, 16), 4, 2, 2, 0, "small"),
+        ("single block 10x10", (1, 10, 10, 8), 4, 1, 3, 0, "small"),
+        ("2 blocks, ragged 11x19", (2, 11, 19, 8), 4, 2, 4, 0, "small"),
+        ("zero input 9x9", (1, 9, 9, 8), 4, 2, None, 5, "small"),
+        ("stage 1 full width", (8, 56, 56, 64), 64, 3, 6, 7, "full"),
+        ("stage 2 tail full width", (8, 28, 28, 512), 128, 3, 8, 9, "full"),
+    ]
+    for name, shape, feats, n, xseed, wseed, kind in cases:
+        chain = seeded_chain(shape[-1], feats, n, wseed, kind == "full")
+        fused = FR.fuse_stage(chain, list(range(n))).to(dev)
+        x = np.zeros(shape, np.float32) if xseed is None else \
+            np.random.default_rng(xseed).normal(size=shape).astype(np.float32)
+        xd = torch.as_tensor(x, device=dev)
+        before = native.LAUNCHES["fused_stage"]
+        got = FR.run_stage(xd, fused)
+        torch.cuda.synchronize()
+        if native.LAUNCHES["fused_stage"] != before + n:
+            raise RuntimeError(f"{name}: run_stage did not launch {n} times")
+        want = FR.run_stage_reference(xd, fused)
+        c_out = feats * 4
+        if got.shape != shape[:3] + (c_out,) or got.dtype != torch.bfloat16:
+            raise RuntimeError(f"{name}: {tuple(got.shape)} {got.dtype}")
+        g, w = got.float(), want.float()
+        scale = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        equal = (g == w).float().mean().item()
+        with torch.no_grad():
+            f32 = chain.to(dev)(xd.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        rel32 = (g - f32).abs().max().item() / f32.abs().max().item()
+        worst_err, worst_equal = block_by_block(xd, fused)
+        full = kind == "full"
+        ok = (bool(torch.isfinite(g).all()) and scale > 0
+              and worst_err <= 1.0 and worst_equal >= STAGE_EQUAL
+              and err <= (STAGE_CHAIN_ULPS / 2 if full else 1) * ulps2(scale)
+              and (full or equal >= STAGE_EQUAL)
+              and rel32 < STAGE_LIB_REL)
+        log(f"  {name:28s} {str(shape):18s} block by block: max|d| "
+            f"{2 * worst_err:.1f} ulp, equal bits {worst_equal * 100:.4f}%;"
+            f" chain: max|d|={err:.3e} of max {scale:.3e}"
+            f" ({2 * err / ulps2(scale):.1f} ulp), equal bits"
+            f" {equal * 100:.4f}%; vs the f32 chain rel {rel32:.2e}"
+            f" {'ok' if ok else 'FAIL'}")
+        if full:
+            cpu = FR.run_stage_reference(xd.cpu(), fused.to("cpu")).float()
+            log(f"    for scale: the plain version on the card vs on the CPU "
+                f"(two sum orders), chain: equal bits "
+                f"{(w.cpu() == cpu).float().mean().item() * 100:.4f}%, "
+                f"max|d|={(w.cpu() - cpu).abs().max().item():.3e}")
+        if not ok:
+            raise RuntimeError(f"fused_stage disagrees with its plain "
+                               f"version: {name}")
+
+
+def hold_to_plain(x_nhwc, y, fused, name):
+    """run_stage's output y on the whole batch x, held to the plain version,
+    which takes the batch STAGE_CHUNK images at a time (it keeps a dozen
+    float32 copies of what it is given).  Every chunk is compared with its
+    rows of y, and the first also block by block.  -> max |kernel - plain|,
+    the plain version's ms for the whole batch (CUDA events around each
+    call, summed), the smallest share of equal elements of a chunk."""
+    import torch
+
+    from tpubody_torch.models import fused_resnet as FR
+
+    B = x_nhwc.shape[0]
+    FR.run_stage_reference(x_nhwc[:STAGE_CHUNK], fused)      # warm-up
+    events, err, scale, equal = [], 0.0, 0.0, 1.0
+    for i in range(0, B, STAGE_CHUNK):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = FR.run_stage_reference(x_nhwc[i:i + STAGE_CHUNK], fused)
+        end.record()
+        events.append((start, end))
+        g, w = y[i:i + STAGE_CHUNK].float(), want.float()
+        err = max(err, (g - w).abs().max().item())
+        scale = max(scale, w.abs().max().item())
+        equal = min(equal, (g == w).float().mean().item())
+    torch.cuda.synchronize()
+    plain_ms = sum(a.elapsed_time(b) for a, b in events)
+    blk_err, blk_equal = block_by_block(x_nhwc[:STAGE_CHUNK], fused)
+    ok = (scale > 0 and blk_err <= 1.0 and blk_equal >= STAGE_EQUAL
+          and err <= STAGE_CHAIN_ULPS / 2 * ulps2(scale))
+    log(f"  {name} vs the plain version, {B // STAGE_CHUNK} chunks of "
+        f"{STAGE_CHUNK}: chain max|d|={err:.3e} of max {scale:.3e} "
+        f"({2 * err / ulps2(scale):.1f} ulp), smallest share of equal bits "
+        f"{equal * 100:.4f}%; first chunk block by block: max|d| "
+        f"{2 * blk_err:.1f} ulp, equal bits {blk_equal * 100:.4f}%; plain "
+        f"{plain_ms:.3f} ms {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"fused_stage disagrees with its plain version "
+                           f"on the model: {name}")
+    return err, plain_ms, equal
+
+
+def phase_backbone(dev):
+    """The fused stage on the serving model's activations and weights at
+    batch 512, its times beside the library's, and the backbone's split
+    -> the kernel line's entry."""
+    import torch
+
+    from tpubody_torch import bench, native
+    from tpubody_torch.models import fused_resnet as FR
+    from tpubody_torch.models import hmr
+
+    B = BACKBONE_BATCH
+    rng = np.random.default_rng(11)
+    images = torch.as_tensor(
+        rng.normal(size=(B, 224, 224, 3)).astype(np.float32), device=dev)
+    model = hmr.create_hmr(dtype=torch.bfloat16, device=dev)
+    bench.randomize_batchnorm(model.backbone, seed=12)
+    bb = model.backbone
+
+    def nhwc(t):
+        return t.permute(0, 2, 3, 1)
+
+    def rel(got, ref):
+        return ((got.float() - ref.float()).abs().max()
+                / ref.float().abs().max()).item()
+
+    with torch.inference_mode():
+        x1 = bb.stem(images)                      # (512, 64, 56, 56)
+        fused1 = FR.fuse_stage(bb.layer1, [0, 1, 2]).to(dev)
+        fused2 = FR.fuse_stage(bb.layer2, [1, 2, 3]).to(dev)
+        native.reset_launches()
+        y1 = FR.run_stage(nhwc(x1), fused1)
+        ref1 = bb.layer1(x1)
+        x2 = bb.layer2[0](ref1)                   # (512, 512, 28, 28)
+        y2 = FR.run_stage(nhwc(x2), fused2)
+        torch.cuda.synchronize()
+        launches = dict(native.LAUNCHES)
+        ref2 = bb.layer2[1:](x2)
+        rel1, rel2 = rel(y1, nhwc(ref1)), rel(y2, nhwc(ref2))
+        shapes = (tuple(y1.shape), tuple(y2.shape))
+        finite = bool(torch.isfinite(y1.float()).all()
+                      and torch.isfinite(y2.float()).all())
+        log(f"  run_stage on the model at batch {B}: layer1 {shapes[0]} vs "
+            f"the library rel {rel1:.3e}; layer2[1:] {shapes[1]} rel "
+            f"{rel2:.3e}; launches {launches}")
+        if shapes != ((B, 56, 56, 256), (B, 28, 28, 512)) or not finite:
+            raise RuntimeError(f"bad outputs {shapes}, finite {finite}")
+        if max(rel1, rel2) >= STAGE_LIB_REL:
+            raise RuntimeError("the fused stage disagrees with the library's "
+                               "bf16 chain")
+        if launches["fused_stage"] != 6:
+            raise RuntimeError(f"fused_stage launched "
+                               f"{launches['fused_stage']} times, expected 6")
+        del ref1, ref2
+        # the same outputs against the plain version, on the same inputs
+        # and weights, at the same batch
+        plain = {1: hold_to_plain(nhwc(x1), y1, fused1, "layer1"),
+                 2: hold_to_plain(nhwc(x2), y2, fused2, "layer2[1:]")}
+        del y1, y2
+        # the kernel on the model's own activations
+        path_ms = {1: time_ms(lambda: FR.run_stage(nhwc(x1), fused1), 10, 2),
+                   2: time_ms(lambda: FR.run_stage(nhwc(x2), fused2), 10, 2)}
+        del x1, x2
+
+    stages = {}
+    for s in (1, 2):
+        res = bench.fused_stage(s, batch=B, iters=20, device=dev)
+        bytes_ms = res["bytes"] / PEAK_BYTES * 1e3
+        ops_ms = res["flop"] / PEAK_BF16 * 1e3
+        if res["parity_rel_err"] >= STAGE_LIB_REL:
+            raise RuntimeError(f"bench.fused_stage({s}): parity "
+                               f"{res['parity_rel_err']}")
+        stages[str(s)] = dict(
+            shape=res["shape"], batch=B, blocks=res["blocks"],
+            launches_per_run=res["launches_per_run"],
+            parity_rel_err=res["parity_rel_err"],
+            ms=res["fused_ms"], ms_on_model=path_ms[s],
+            library_ms=res["library_ms"],
+            max_abs_err=plain[s][0], plain_ms=plain[s][1],
+            plain_equal_share=plain[s][2],
+            flop=res["flop"], bytes=res["bytes"], bytes_ms=bytes_ms,
+            ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            tflops=res["flop"] / res["fused_ms"] * 1e-9)
+        log(f"  stage {s}: {stages[str(s)]}")
+
+    with torch.inference_mode():
+        split = bench.backbone_split(bench.make_step(dev), images, 10)
+    log(f"  backbone split at batch {B}, ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"; sum {sum(split.values()):.3f}")
+
+    # the space-to-depth stem against the direct one, same state dict
+    m7 = hmr.create_hmr(dtype=torch.float32, device=dev, seed=3)
+    ms2d = hmr.create_hmr(dtype=torch.float32, device=dev, seed=3, stem="s2d")
+    ms2d.load_state_dict(m7.state_dict())
+    with torch.inference_mode():
+        a, b = m7(images[:8]), ms2d(images[:8])
+        stem_err = max((p - q).abs().max().item() for p, q in zip(a, b))
+        feat_err = (m7.backbone.stem(images[:8])
+                    - ms2d.backbone.stem(images[:8])).abs().max().item()
+        s2d16 = hmr.create_hmr(dtype=torch.bfloat16, device=dev, stem="s2d")
+        stem_ms = {
+            "conv7": time_ms(lambda: bb.stem(images), 10, 2),
+            "s2d": time_ms(lambda: s2d16.backbone.stem(images), 10, 2)}
+    log(f"  s2d vs conv7 stem, fp32, 8 images: HMR outputs max|d|="
+        f"{stem_err:.3e}, stem features max|d|={feat_err:.3e}; bf16 stem at "
+        f"batch {B}: conv7 {stem_ms['conv7']:.3f} ms, s2d "
+        f"{stem_ms['s2d']:.3f} ms")
+    if stem_err > STEM_ATOL or feat_err > STEM_ATOL:
+        raise RuntimeError("the s2d stem disagrees with conv7")
+    log(json.dumps({"backbone": {
+        "batch": B, "split_ms": split, "stem_ms": stem_ms,
+        "fused_vs_library_rel": [rel1, rel2], "stages": stages}}))
+
+    main = stages["1"]
+    return {
+        "name": "fused_stage",
+        "route": "cuda",
+        "source": "tpubody_torch/csrc/fused_stage.cu",
+        "replaces": "tpubody/models/pallas_resnet.py:167",
+        "replaces_fn": "tpubody/models/pallas_resnet.py::_stage_kernel",
+        "shape": {"B": B, "H": 56, "W": 56, "C_in": 64, "C_mid": 64,
+                  "C_out": 256, "blocks": 3,
+                  "stage": "1 (stage 2's tail under stages)"},
+        "launches": launches["fused_stage"],
+        "max_abs_err": main["max_abs_err"],
+        "ms": main["ms"],
+        "kernel_ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "stages": stages,
+    }
+
+
 ALL_PHASES = ("lbs", "serve", "bench", "raster", "video", "oracle", "vtiming",
-              "zbuffer", "reconstruct", "rtiming")
+              "zbuffer", "reconstruct", "rtiming", "stage", "backbone")
 EXTRA_PHASES = ("vprofile",)
 
 
@@ -1605,6 +1958,14 @@ def main() -> int:
             kernels.append(entry)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+    if "stage" in phases:
+        log("phase 13: fused_stage vs its plain version")
+        phase_stage(dev)
+    if "backbone" in phases:
+        log(f"phase 14: the fused stage on the full-width backbone, batch "
+            f"{BACKBONE_BATCH}")
+        kernels.append(phase_backbone(dev))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

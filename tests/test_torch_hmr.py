@@ -166,9 +166,86 @@ def test_mean_params_match_tpubody(tmp_path):
                                   jhmr.load_mean_params(path))
 
 
+def test_s2d_stem_equals_conv7(images):
+    """Same state dict, either stem: the same outputs in fp32 (the bar of
+    tests/test_hmr.py: 1e-4), on the backbone features and on the whole
+    model."""
+    a = thmr.create_hmr(dtype=torch.float32, device="cpu", seed=5,
+                        stage_sizes=(1, 1, 1, 1))
+    b = thmr.create_hmr(dtype=torch.float32, device="cpu", seed=6,
+                        stage_sizes=(1, 1, 1, 1), stem="s2d")
+    assert set(a.state_dict()) == set(b.state_dict())
+    assert tuple(b.backbone.conv1.weight.shape) == (64, 3, 7, 7)
+    b.load_state_dict(a.state_dict())
+    x = torch.as_tensor(images)
+    with torch.no_grad():
+        sa, sb = a.backbone.stem(x), b.backbone.stem(x)
+        oa, ob = a(x), b(x)
+    assert tuple(sb.shape) == (2, 64, 16, 16)
+    assert (sa - sb).abs().max() < 1e-4
+    for name in ("pose6d", "shape", "cam", "rotmats"):
+        assert (getattr(oa, name) - getattr(ob, name)).abs().max() < 1e-4, name
+
+
+def test_s2d_stem_matches_flax(images):
+    """tpubody's ResNet50(stem="s2d") and the port's on one Flax tree, and
+    the fall-back to the direct convolution for an odd input size."""
+    model = jhmr.ResNet50(dtype=jnp.float32, stage_sizes=(1, 1, 1, 1),
+                          stem="s2d")
+    variables = _perturb(shape_init(model, jnp.zeros((1, 64, 64, 3))), seed=2)
+    net = thmr.ResNet50(stage_sizes=(1, 1, 1, 1), stem="s2d")
+    net.load_state_dict(thmr.from_flax_variables(variables))
+    net.eval()
+    for x in (images, images[:, :63, :61]):
+        want = np.asarray(model.apply(variables, jnp.asarray(x)))
+        with torch.no_grad():
+            got = net(torch.as_tensor(np.ascontiguousarray(x))).numpy()
+        assert got.shape == (2, 2048)
+        assert _rel(got, want) < REL
+    # the odd size went through conv1 as it stands
+    called = []
+    net.conv1.register_forward_hook(lambda *a: called.append(1))
+    with torch.no_grad():
+        net(torch.as_tensor(images))
+        assert not called
+        net(torch.as_tensor(np.ascontiguousarray(images[:, :63])))
+    assert called
+
+
+def test_bench_fused_stage_chain_on_cpu():
+    """The chain, its fused weights and the plain version behind
+    tpubody_torch.bench.fused_stage, at tiny widths (the timed part needs
+    the card)."""
+    from tpubody_torch import bench
+    from tpubody_torch.models import fused_resnet
+
+    chain, fused, (H, W, c_in) = bench.build_stage_chain(
+        1, shape=((0, 1, 2), 4, 9, 8))
+    assert (H, W, c_in) == (9, 9, 8) and len(chain) == 3
+    assert fused.n_rest == 2 and fused.Ad is not None
+    assert chain[1].downsample is None
+    one = bench.build_stage_chain(1, blocks=1, shape=((0, 1, 2), 4, 9, 8))[1]
+    assert one.n_rest == 0 and torch.equal(one.A1_0, fused.A1_0)
+    x = torch.as_tensor(np.random.default_rng(0).normal(
+        size=(2, H, W, c_in)).astype(np.float32))
+    with torch.no_grad():
+        ref = chain(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    got = fused_resnet.run_stage(x, fused).float()
+    assert (got - ref).abs().max() / ref.abs().max() < 2e-2
+    work = bench.stage_work(fused, 2, H, W)
+    # 2 * (8*4 + 36*4 + 4*16 + 8*16) + 2 * 2 * (16*4 + 36*4 + 4*16)
+    assert work["flop_per_pixel"] == 736 + 2 * 544
+    full = bench.stage_work(bench.build_stage_chain(2)[1], 512, 28, 28)
+    assert full["flop_per_pixel"] == 1671168
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.fused_stage(1, device="cpu")
+    with pytest.raises(ValueError):
+        bench.fused_stage(1, what="xla", device="cpu")
+
+
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        thmr.create_hmr(stem="s2d", device="cpu")
+    with pytest.raises(ValueError, match="stem"):
+        thmr.create_hmr(stem="s4d", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             thmr.create_hmr()          # entry points default to the card

@@ -31,6 +31,7 @@ MODULES = [
     "tpubody_torch.io.motion",
     "tpubody_torch.mesh.decimate",
     "tpubody_torch.mesh.rigging",
+    "tpubody_torch.models.fused_resnet",
     "tpubody_torch.models.hmr",
     "tpubody_torch.models.humanoid",
     "tpubody_torch.models.params",

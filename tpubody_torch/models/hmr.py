@@ -20,12 +20,14 @@ from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tpubody_torch.core.rotations import rot6d_to_rotmat
 from tpubody_torch.device import DeviceLike, resolve
 
 NPOSE = 24 * 6  # 144: 24 joints x 6D rotation
+STEMS = ("conv7", "s2d")
 HEADS = ("fc1", "fc2", "decpose", "decshape", "deccam")
 
 
@@ -71,11 +73,23 @@ class Bottleneck(nn.Module):
 class ResNet50(nn.Module):
     """ResNet-50 feature extractor: (B, H, W, 3) NHWC -> (B, 2048) pooled
     features, computed in the dtype of its weights.  ``stage_sizes`` lets
-    tests build a shallow one."""
+    tests build a shallow one.
 
-    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3)):
+    ``stem`` selects how the 7x7/stride-2 input convolution is computed:
+    ``"conv7"`` (default) directly, ``"s2d"`` by space-to-depth: RGB is
+    zero-padded to 4 channels, 2x2 pixel blocks fold into channels
+    ((B, H/2, W/2, 16)), and an equivalent 4x4/stride-1 convolution gives
+    the same outputs.  The parameter stays the canonical (64, 3, 7, 7)
+    ``conv1.weight`` and is rearranged in ``forward``, so state dicts do
+    not depend on the stem.  An odd height or width falls back to conv7."""
+
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 stem: str = "conv7"):
         super().__init__()
+        if stem not in STEMS:
+            raise ValueError(f"stem={stem!r}: expected one of {STEMS}")
         self.stage_sizes = tuple(stage_sizes)
+        self.stem_kind = stem
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = _bn(64)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
@@ -89,10 +103,37 @@ class ResNet50(nn.Module):
                 in_features = feats * 4
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
 
+    def _conv1_s2d(self, images: torch.Tensor) -> torch.Tensor:
+        """Space-to-depth stem.  out[i, j] = sum_{u,v} x[2i+u-3, 2j+v-3]
+        w[u, v]; with rows r = 2p + a (block p, parity a) and p = i - 2 + P
+        for kernel tap P in [0, 4), u = 2P + a - 1: tap (P, a) = (0, 0)
+        falls outside the 7x7 kernel and carries zero weight."""
+        B, H, W, _ = images.shape
+        OH, OW = H // 2, W // 2
+        w = self.conv1.weight                            # (64, 3, 7, 7)
+        # pad rows and columns in front to 8x8 and channels 3 -> 4, split
+        # as (O, c, P, a, Q, b), reorder to (O, (a, b, c), P, Q)
+        k8 = F.pad(w, (1, 0, 1, 0, 0, 1)).reshape(64, 4, 4, 2, 4, 2)
+        k4 = k8.permute(0, 3, 5, 1, 2, 4).reshape(64, 16, 4, 4)
+        xb = F.pad(images.to(w.dtype), (0, 1)).reshape(B, OH, 2, OW, 2, 4)
+        y = xb.permute(0, 1, 3, 2, 4, 5).reshape(B, OH, OW, 16)
+        y = F.pad(y.permute(0, 3, 1, 2), (2, 1, 2, 1))   # stays channels_last
+        return F.conv2d(y, k4.contiguous(memory_format=torch.channels_last))
+
+    def stem(self, images: torch.Tensor) -> torch.Tensor:
+        """conv1 + bn1 + relu + maxpool: (B, H, W, 3) NHWC -> (B, 64, H/4,
+        W/4), channels_last in memory."""
+        if (self.stem_kind == "s2d" and images.shape[1] % 2 == 0
+                and images.shape[2] % 2 == 0):
+            x = self._conv1_s2d(images)
+        else:
+            # NHWC permuted to NCHW is channels_last in memory: no copy.
+            x = self.conv1(images.permute(0, 3, 1, 2)
+                           .to(self.conv1.weight.dtype))
+        return self.maxpool(torch.relu(self.bn1(x)))
+
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        # NHWC permuted to NCHW is channels_last in memory: no copy.
-        x = images.permute(0, 3, 1, 2).to(self.conv1.weight.dtype)
-        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
+        x = self.stem(images)
         for i in range(len(self.stage_sizes)):
             x = getattr(self, f"layer{i + 1}")(x)
         return torch.mean(x, dim=(2, 3))   # global average pool
@@ -102,13 +143,14 @@ class HMR(nn.Module):
     """HMR regressor.  ``mean_params``: (144 + 10 + 3,) initial estimate."""
 
     def __init__(self, mean_params: np.ndarray, n_iter: int = 3,
-                 stage_sizes: Sequence[int] = (3, 4, 6, 3)):
+                 stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 stem: str = "conv7"):
         super().__init__()
         self.n_iter = n_iter
         self.register_buffer(
             "mean_params", torch.as_tensor(np.asarray(mean_params, np.float32)),
             persistent=False)
-        self.backbone = ResNet50(stage_sizes)
+        self.backbone = ResNet50(stage_sizes, stem)
         self.fc1 = nn.Linear(2048 + NPOSE + 13, 1024)
         self.fc2 = nn.Linear(1024, 1024)
         self.decpose = nn.Linear(1024, NPOSE)
@@ -214,13 +256,12 @@ def create_hmr(
     device: DeviceLike = "cuda",
 ) -> HMR:
     """Build an HMR module with seeded random weights, on ``device``, in
-    eval mode.  Only the direct 7x7 stem is ported."""
-    if stem != "conv7":
-        raise NotImplementedError(f"stem={stem!r}: only 'conv7' is ported")
+    eval mode.  ``stem``: "conv7" or "s2d" (see :class:`ResNet50`)."""
     dev = resolve(device)
     if mean_params is None:
         mean_params = default_mean_params()
-    model = HMR(mean_params, n_iter=n_iter, stage_sizes=stage_sizes)
+    model = HMR(mean_params, n_iter=n_iter, stage_sizes=stage_sizes,
+                stem=stem)
     init_weights(model, seed)
     return to_compute(model, dtype, dev)
 

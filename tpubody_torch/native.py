@@ -30,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 # Launch counts per kernel name, bumped by the wrappers.
-LAUNCHES: Dict[str, int] = {"fused_lbs": 0, "fused_raster": 0, "zbuffer": 0}
+LAUNCHES: Dict[str, int] = {"fused_lbs": 0, "fused_raster": 0, "zbuffer": 0,
+                            "fused_stage": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -131,6 +132,10 @@ def library() -> ctypes.CDLL:
         lib.tpubody_zbuffer.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,
                                         ctypes.c_float, vp]
         lib.tpubody_zbuffer.restype = ci
+        lib.tpubody_fused_stage_block.argtypes = [vp] * 10 + [ci] * 6 + [vp]
+        lib.tpubody_fused_stage_block.restype = ci
+        lib.tpubody_fused_stage_smem_bytes.argtypes = [ci, ci]
+        lib.tpubody_fused_stage_smem_bytes.restype = ci
         lib.tpubody_cuda_error_string.argtypes = [ci]
         lib.tpubody_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
