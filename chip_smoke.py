@@ -9,7 +9,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                for sm_90a (first use builds; the time is printed);
   2. kernels — hold the fused LBS kernel to its plain PyTorch version on
                the card, TF32 off: full width (512 frames, the 6890-vertex
-               humanoid) and a ragged shape (5 frames, 700 vertices),
+               humanoid) and ragged shapes (5 and 70 frames, 700 vertices),
                shared and per-frame betas, axis-angle and rotation-matrix
                poses, both precisions (max |d| < 2e-5 for "highest",
                relative error < 1e-4 for "bf16x3", the bars of
@@ -25,8 +25,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                same step on the CPU;
   4. bench   — tpubody_torch.bench's flagship step at batch 512: frames/s
                and the per-layer split, from CUDA events after warm-up;
-  5. timing  — fused_lbs against its plain version, one PyTorch call
-               computing the same contractions, and its bound;
+  5. timing  — fused_lbs in both precisions against one PyTorch call
+               computing the same contractions (timed in turns in one
+               run), its plain version and its bound;
   6. raster  — hold the fused raster kernel to its plain PyTorch version
                on tables that _bin_fused builds: two frames of the video
                clip at full width (1024^2, the humanoid avatar; the base
@@ -111,7 +112,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                chunks of 8 (the gates of phase 13, block by block on the
                first chunk), which also times the plain version at that
                batch.  Then tpubody_torch.bench.fused_stage(1) and (2)
-               (kernel and library ms at batch 512), the bound,
+               (kernel and library ms at batch 512, in one run), the bound,
                bench.backbone_split of the flagship
                step, and the s2d stem against conv7 (fp32 within 1e-4, and
                both stems' ms in bf16).
@@ -259,14 +260,16 @@ def phase_kernels(dev):
         ("full rotmat per-frame-beta", full, 512, True, True, False),
         ("ragged aa shared-beta trans", ragged, 5, False, False, True),
         ("ragged rotmat per-frame-beta trans", ragged, 5, True, True, True),
+        # past one 64-frame tile, with a ragged second one
+        ("ragged 70 frames aa shared-beta trans", ragged, 70, False, False,
+         True),
     ]
     main_err = None
     for name, body, F, rotmat, pfb, tr in cases:
         layouts, feat, g, trans, (poses, beta) = lbs_inputs(
             body, F, rng, rotmat, pfb, tr)
         for prec in fused_lbs.PRECISIONS:
-            got = fused_lbs.fused_lbs(layouts.basis, layouts.wT, feat, g,
-                                      trans, prec)
+            got = fused_lbs.fused_lbs(layouts, feat, g, trans, prec)
             torch.cuda.synchronize()
             ref = fused_lbs.fused_lbs_reference(layouts.basis, layouts.wT,
                                                 feat, g, trans, prec)
@@ -409,33 +412,43 @@ def phase_timing(body, launches, main_err):
     from tpubody_torch.core import fused_lbs
 
     rng = np.random.default_rng(3)
-    layouts, feat, g, trans, _ = lbs_inputs(body, 512, rng, True, True, False)
+    layouts, feat, g, _, _ = lbs_inputs(body, 512, rng, True, True, False)
     F, K = feat.shape
     J, V = layouts.wT.shape
     g2 = g.permute(0, 2, 1).reshape(F * 12, J).contiguous()
-    per = {}
+
+    def library():
+        return (torch.matmul(feat, layouts.basis),
+                torch.matmul(g2, layouts.wT))
+
+    # library, kernel in both precisions, then both again in reverse order
+    lib_ms, per = [], {p: dict(ms=[]) for p in fused_lbs.PRECISIONS}
+    for order in (fused_lbs.PRECISIONS, fused_lbs.PRECISIONS[::-1]):
+        lib_ms.append(time_ms(library))
+        for prec in order:
+            per[prec]["ms"].append(time_ms(
+                lambda: fused_lbs.fused_lbs(layouts, feat, g, None, prec)))
+    library_ms = min(lib_ms)
     for prec in fused_lbs.PRECISIONS:
-        per[prec] = dict(
-            ms=time_ms(lambda: fused_lbs.fused_lbs(
-                layouts.basis, layouts.wT, feat, g, None, prec)),
-            plain_ms=time_ms(lambda: fused_lbs.fused_lbs_reference(
-                layouts.basis, layouts.wT, feat, g, None, prec)))
-    library_ms = time_ms(lambda: (torch.matmul(feat, layouts.basis),
-                                  torch.matmul(g2, layouts.wT)))
+        per[prec]["ms"] = min(per[prec]["ms"])
+        per[prec]["plain_ms"] = time_ms(lambda: fused_lbs.fused_lbs_reference(
+            layouts.basis, layouts.wT, feat, g, None, prec))
     # The least time for this work: each input read once and the output
     # written once, against the operations (contractions: 2*3*K and 2*12*J
-    # per frame-vertex; apply + trans: 24) at the peak rate of their type.
+    # per frame-vertex, as 3 bf16 products in bf16x3 and 6 in "highest";
+    # apply + trans: 24 fp32) at the peak rate of their type.
     nbytes = 4 * (layouts.basis.numel() + layouts.wT.numel() + feat.numel()
                   + g.numel() + F * V * 3)
     contract = 2.0 * F * V * (3 * K + 12 * J)
-    apply_ops = 24.0 * F * V
+    apply_ms = 24.0 * F * V / PEAK_FP32 * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
-    bounds = {
-        # fp32 FMAs: the CUDA cores' fp32 rate (TF32 is not fp32-exact).
-        "highest": (contract + apply_ops) / PEAK_FP32 * 1e3,
-        # three bf16 x bf16 products per term: the bf16 tensor-core rate.
-        "bf16x3": 3 * contract / PEAK_BF16 * 1e3 + apply_ops / PEAK_FP32 * 1e3,
-    }
+    bounds = {"bf16x3": 3 * contract / PEAK_BF16 * 1e3 + apply_ms,
+              "highest": 6 * contract / PEAK_BF16 * 1e3 + apply_ms}
+    for prec in fused_lbs.PRECISIONS:
+        log(f"  fused_lbs {prec:8s} {per[prec]['ms']:.4f} ms, library "
+            f"{library_ms:.4f} ms, ratio {per[prec]['ms'] / library_ms:.3f};"
+            f" bound {max(bytes_ms, bounds[prec]):.4f} ms; plain "
+            f"{per[prec]['plain_ms']:.4f} ms")
     main = "bf16x3"
     bound_ms = max(bytes_ms, bounds[main])
     entry = {
@@ -455,6 +468,7 @@ def phase_timing(body, launches, main_err):
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= bounds[main] else "operations",
         "library_ms": library_ms,
+        "library_ratio": per[main]["ms"] / library_ms,
         "highest": {
             "ms": per["highest"]["ms"],
             "plain_ms": per["highest"]["plain_ms"],
@@ -1798,6 +1812,7 @@ def phase_backbone(dev):
             launches_per_run=res["launches_per_run"],
             parity_rel_err=res["parity_rel_err"],
             ms=res["fused_ms"], ms_on_model=path_ms[s],
+            library_ratio=res["fused_ms"] / res["library_ms"],
             library_ms=res["library_ms"],
             max_abs_err=plain[s][0], plain_ms=plain[s][1],
             plain_equal_share=plain[s][2],
@@ -1895,8 +1910,9 @@ def main() -> int:
     for path in sorted(glob.glob(os.path.join(os.path.dirname(lib), "*.log"))):
         with open(path) as f:     # nvcc -Xptxas -v: registers, spills
             for line in f:
-                if "registers" in line or "spill" in line:
-                    log("  " + line.strip())
+                if ("registers" in line or "spill" in line
+                        or "entry function" in line):
+                    log(f"  {os.path.basename(path)}: {line.strip()}")
     native.library()
 
     kernels = []

@@ -146,12 +146,127 @@ def test_wrapper_uses_plain_version_on_cpu(data):
                                      torch.as_tensor(d["beta"]))
     assert feat.shape == (6, 9 * 23 + 10 + 1) and g.shape == (6, 24, 12)
     for prec in fused_lbs.PRECISIONS:
-        a = fused_lbs.fused_lbs(lay.basis, lay.wT, feat, g, None, prec)
+        a = fused_lbs.fused_lbs(lay, feat, g, None, prec)
         b = fused_lbs.fused_lbs_reference(lay.basis, lay.wT, feat, g, None,
                                            prec)
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="precision"):
-        fused_lbs.fused_lbs(lay.basis, lay.wT, feat, g, None, "high")
+        fused_lbs.fused_lbs(lay, feat, g, None, "high")
+
+
+# -- the model's split planes, read back by the mma.sync m16n8k16 fragment
+# definitions of the PTX ISA (lane = 4 * groupID + threadID_in_group; a
+# 32-bit register holds two bf16 values, the lower one first); the kernel's
+# entry point splits the per-frame rows as split_planes does, on the card
+# (split_frames_kernel)
+
+def decode_b(planes):
+    """(3, N/16, items, 32, 8) B-fragment words -> (3, 16 * items, N):
+    register r of column tile n8 holds rows k = 2t + (0, 1) (+ 8 for the
+    second register), column groupID."""
+    p = planes.float().numpy()
+    P, NT, items = p.shape[:3]
+    out = np.full((P, items, 16, NT, 16), np.nan, np.float32)
+    for lane in range(32):
+        grp, t = divmod(lane, 4)
+        for j in range(8):
+            reg, half = divmod(j, 2)
+            ntile, second = divmod(reg, 2)
+            k = 2 * t + half + 8 * second
+            out[:, :, k, :, ntile * 8 + grp] = p[:, :, :, lane, j].transpose(
+                0, 2, 1)
+    return out.reshape(P, items * 16, NT * 16)
+
+
+def padded_operands(lay, feat, g):
+    """The fp32 matrices of the products: B (16 * (3 KS + JS), Vp), which
+    the model's planes must hold, and A (Fp, 16 * (KS + 12 JS)), which the
+    kernel splits as its fragments load; zero padded."""
+    K, V = lay.basis.shape[1:]
+    J, F = lay.wT.shape[0], feat.shape[0]
+    KS, JS = (K + 15) // 16, (J + 15) // 16
+    Vp, Fp = -(-V // 64) * 64, -(-F // 64) * 64
+    B = np.zeros((16 * (3 * KS + JS), Vp), np.float32)
+    for c in range(3):
+        B[16 * KS * c:16 * KS * c + K, :V] = lay.basis[c].numpy()
+    B[48 * KS:48 * KS + J, :V] = lay.wT.numpy()
+    A = np.zeros((Fp, 16 * (KS + 12 * JS)), np.float32)
+    A[:F, :K] = feat.numpy()
+    gT = g.numpy().transpose(0, 2, 1)
+    for e in range(12):
+        A[:F, 16 * KS + 16 * JS * e:16 * KS + 16 * JS * e + J] = gT[:, e]
+    return A, B, KS, JS
+
+
+@pytest.mark.parametrize("frames_n", [6, 5])
+def test_split_planes_sum_back_and_pad_with_zeros(data, frames_n):
+    """hi + lo is the bf16x3 split (residual <= 2^-16 |x|), hi + lo + lo2
+    the three-way one (<= 2^-24 |x|); every pad row and column is zero in
+    every plane; nothing of the planes is left unwritten."""
+    d = data
+    lay = fused_lbs.model_layouts(d["model"])
+    feat, g = fused_lbs.lbs_prologue(
+        lay, d["model"].parents, torch.as_tensor(d["poses"][:frames_n]),
+        torch.as_tensor(d["betas_f"][:frames_n]))
+    A, B, KS, JS = padded_operands(lay, feat, g)
+    A_planes = fused_lbs.split_planes(torch.from_numpy(A)).float().numpy()
+    for want, got in ((B, decode_b(lay.planes)), (A, A_planes)):
+        assert got.shape[1:] == want.shape and not np.isnan(got).any()
+        two = got[0].astype(np.float64) + got[1]
+        three = two + got[2]
+        assert (np.abs(two - want) <= 2.0 ** -16 * np.abs(want)).all()
+        assert (np.abs(three - want) <= 2.0 ** -24 * np.abs(want)).all()
+        assert not got[:, want == 0].any()       # the pads and the zeros
+    # the hi and lo planes are _split_bf16's parts bit for bit
+    hi, lo = fused_lbs._split_bf16(lay.basis)
+    got = decode_b(lay.planes)
+    V = lay.basis.shape[2]
+    np.testing.assert_array_equal(got[0, :lay.basis.shape[1], :V],
+                                  hi[0].numpy())
+    np.testing.assert_array_equal(got[1, :lay.basis.shape[1], :V],
+                                  lo[0].numpy())
+    hi, lo = fused_lbs._split_bf16(torch.from_numpy(A))
+    np.testing.assert_array_equal(A_planes[0], hi.numpy())
+    np.testing.assert_array_equal(A_planes[1], lo.numpy())
+
+
+@pytest.mark.parametrize("precision", fused_lbs.PRECISIONS)
+def test_products_of_the_planes_match_plain(data, precision):
+    """The kernel's arithmetic from its planes, in the kernel's order: per
+    coordinate and transform entry, the products hi*hi + hi*lo + lo*hi
+    (bf16x3) or with hi*lo2 + lo2*hi + lo*lo ("highest"), then the apply
+    step; held to the plain version at the tolerances above."""
+    d = data
+    lay = fused_lbs.model_layouts(d["model"])
+    F = 5
+    feat, g = fused_lbs.lbs_prologue(
+        lay, d["model"].parents, torch.as_tensor(d["poses"][:F]),
+        torch.as_tensor(d["betas_f"][:F]))
+    A, _, KS, JS = padded_operands(lay, feat, g)
+    A = fused_lbs.split_planes(torch.from_numpy(A)).float()
+    B = torch.from_numpy(decode_b(lay.planes))
+    pairs = [(1, 0), (0, 1), (0, 0)]
+    if precision == "highest":
+        pairs = [(2, 0), (0, 2), (1, 1)] + pairs
+
+    def dot(a_cols, b_rows):
+        return sum(A[p][:, a_cols] @ B[q][b_rows] for p, q in pairs)
+
+    V = lay.basis.shape[2]
+    v = [dot(slice(0, 16 * KS), slice(16 * KS * c, 16 * KS * (c + 1)))
+         for c in range(3)]
+    wrows = slice(48 * KS, 48 * KS + 16 * JS)
+    out = torch.zeros((A.shape[1], B.shape[2], 3))
+    trans = torch.as_tensor(d["trans"][:F])
+    for r in range(3):
+        for e in range(4):
+            c0 = 16 * KS + 16 * JS * (r * 4 + e)
+            T = dot(slice(c0, c0 + 16 * JS), wrows)
+            out[..., r] += T * v[e] if e < 3 else T
+    got = out[:F, :V] + trans[:, None, :]
+    want = fused_lbs.fused_lbs_reference(lay.basis, lay.wT, feat, g, trans,
+                                         precision)
+    _close(got.numpy(), want.numpy(), precision)
 
 
 def test_layouts_cached_on_model(data):
@@ -183,24 +298,30 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", fused_lbs.PRECISIONS)
 def test_cuda_kernel_matches_plain(data, cuda, precision):
+    """F = 6 and 5 (ragged in the 16-frame row tiles), 70 (past one 64-frame
+    block tile); V = 700 (ragged in the 64-vertex tiles)."""
     from tpubody_torch import native
 
     d = data
     m = d["model"].to(cuda)
     lay = fused_lbs.model_layouts(m)
-    for F, beta in ((6, d["beta"]), (5, d["betas_f"][:5])):
+    rng = np.random.default_rng(5)
+    poses70 = rng.normal(scale=0.3, size=(70, 24, 3)).astype(np.float32)
+    for poses, beta in ((d["poses"], d["beta"]), (d["poses"][:5],
+                        d["betas_f"][:5]), (poses70, d["beta"])):
+        F = poses.shape[0]
         feat, g = fused_lbs.lbs_prologue(
-            lay, m.parents, torch.as_tensor(d["poses"][:F], device=cuda),
+            lay, m.parents, torch.as_tensor(poses, device=cuda),
             torch.as_tensor(beta, device=cuda))
-        trans = torch.as_tensor(d["trans"][:F], device=cuda)
+        trans = torch.as_tensor(rng.normal(size=(F, 3)).astype(np.float32),
+                                device=cuda)
         before = native.LAUNCHES["fused_lbs"]
-        got = fused_lbs.fused_lbs(lay.basis, lay.wT, feat, g, trans,
-                                  precision)
+        got = fused_lbs.fused_lbs(lay, feat, g, trans, precision)
         torch.cuda.synchronize()
         assert native.LAUNCHES["fused_lbs"] == before + 1
         want = fused_lbs.fused_lbs_reference(lay.basis, lay.wT, feat, g,
                                              trans, precision)
         _close(got.cpu().numpy(), want.cpu().numpy(), precision)
     with pytest.raises(ValueError, match="dtype"):
-        fused_lbs.fused_lbs(lay.basis.double(), lay.wT, feat, g, None,
-                            precision)
+        fused_lbs.fused_lbs(lay._replace(planes=lay.planes.float()), feat,
+                            g, None, precision)

@@ -42,6 +42,10 @@ CASES = {
     "zero_input": (1, 2, (1, 9, 9, 8), 0, 5, True),
 }
 FEATS = 4
+# the CUDA kernel alone also runs a 28x28 image (stage 2's size, one band of
+# 256 padded positions spans image rows) and a batch whose bands straddle
+# images
+CUDA_CASES = {**CASES, "image_28x28": (2, 2, (3, 28, 28, 16), 6, 1, False)}
 
 
 def jax_side():
@@ -192,20 +196,82 @@ def test_fuse_stage_rejects_downsample_after_first():
         FR.fuse_stage([thmr.Bottleneck(16, FEATS, 2)], [0])
 
 
+def unswizzle(flat, n_rows, k_cols):
+    """The kernel's flat B tiles -> the (n_rows, k_cols) matrix, read by the
+    rule of a wgmma descriptor with 128-byte swizzle: chunks of up to 128
+    rows, K slices of 64 (128-byte rows), and in row r the 16-byte chunk
+    stored at position p holds K columns 8 (p ^ (r % 8)) .. + 8."""
+    out = torch.full((n_rows, k_cols), float("nan"), dtype=torch.bfloat16)
+    pos = 0
+    for n0 in range(0, n_rows, 128):
+        rows = min(128, n_rows - n0)
+        for k0 in range(0, k_cols, 64):
+            tile = flat[pos:pos + rows * 64].reshape(rows, 8, 8)
+            pos += rows * 64
+            for r in range(rows):
+                for p in range(8):
+                    c = p ^ (r % 8)
+                    out[n0 + r, k0 + 8 * c:k0 + 8 * c + 8] = tile[r, p]
+    assert pos == flat.numel()
+    return out
+
+
 def test_packed_layout_pads_the_weights_with_zeros():
     _, _, _, _, _, fused = make_case("single")
     blk = fused.packed[0]
     assert (blk["c_in"], blk["c_mid"], blk["c_out"]) == (8, 4, 16)
-    assert tuple(blk["w1"].shape) == (16, 16)
-    assert tuple(blk["w2"].shape) == (9, 16, 16)
-    assert tuple(blk["w3"].shape) == (16, 16) == tuple(blk["wd"].shape)
-    assert torch.equal(blk["w1"][:4, :8], fused.A1_0)
-    assert not blk["w1"][4:].any() and not blk["w1"][:, 8:].any()
+    assert tuple(blk["w1"].shape) == (64 * 64,)
+    assert tuple(blk["w2"].shape) == (9 * 64 * 64,)
+    assert tuple(blk["w3"].shape) == (64 * 64,) == tuple(blk["wd"].shape)
+    w1 = unswizzle(blk["w1"], 64, 64)
+    assert torch.equal(w1[:4, :8], fused.A1_0)
+    assert not w1[4:].any() and not w1[:, 8:].any()
     for tap in range(9):
-        assert torch.equal(blk["w2"][tap, :4, :4],
-                           fused.A2_0[:, tap * 4:(tap + 1) * 4])
-    assert not blk["w2"][:, 4:].any() and not blk["b1"][4:].any()
+        w2 = unswizzle(blk["w2"][tap * 4096:(tap + 1) * 4096], 64, 64)
+        assert torch.equal(w2[:4, :4], fused.A2_0[:, tap * 4:(tap + 1) * 4])
+        assert not w2[4:].any() and not w2[:, 4:].any()
+    assert not blk["b1"][4:].any() and tuple(blk["b1"].shape) == (64,)
     assert torch.equal(blk["b3"][:16], fused.b3_0[:, 0])
+    assert not blk["b3"][16:].any()
+
+
+@pytest.mark.parametrize("c_in,feats,down", [(8, 4, True), (256, 64, False),
+                                             (64, 32, True), (24, 40, True)])
+def test_unswizzled_tiles_give_back_the_padded_matrices(c_in, feats, down):
+    """Un-swizzling the packed tiles gives back the zero-padded (C_mid,
+    C_in), (9, C_mid, C_mid) and (C_out, C_mid) / (C_out, C_in) matrices
+    bit for bit, at widths of one chunk, of two chunks of 128 rows, and
+    of a chunk of 64 rows after one of 128."""
+    rng = np.random.default_rng(c_in + feats)
+    blk_mod = thmr.Bottleneck(c_in, feats, 1)
+    if not down:
+        blk_mod.downsample = None
+    chain = torch.nn.Sequential(blk_mod).eval()
+    with torch.no_grad():
+        for t in list(chain.parameters()) + [b for b in chain.buffers()
+                                             if b.dtype.is_floating_point]:
+            t.copy_(torch.as_tensor(rng.uniform(0.05, 0.4, tuple(t.shape))))
+    fused = FR.fuse_stage(chain, [0])
+    blk = fused.packed[0]
+    pm, pi, po = (-(-c // 64) * 64 for c in (feats, c_in, 4 * feats))
+
+    def padded(a, shape):
+        out = torch.zeros(shape, dtype=torch.bfloat16)
+        out[:a.shape[0], :a.shape[1]] = a
+        return out
+
+    assert torch.equal(unswizzle(blk["w1"], pm, pi),
+                       padded(fused.A1_0, (pm, pi)))
+    A2 = fused.A2_0.reshape(feats, 9, feats)
+    for tap in range(9):
+        got = unswizzle(blk["w2"][tap * pm * pm:(tap + 1) * pm * pm], pm, pm)
+        assert torch.equal(got, padded(A2[:, tap], (pm, pm))), tap
+    assert torch.equal(unswizzle(blk["w3"], po, pm),
+                       padded(fused.A3_0, (po, pm)))
+    assert (blk["wd"] is None) == (not down)
+    if down:
+        assert torch.equal(unswizzle(blk["wd"], po, pi),
+                           padded(fused.Ad, (po, pi)))
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -273,7 +339,7 @@ def cuda():
 def cuda_case(name, device):
     """-> (x numpy, FusedStage on the card, run_stage's output there); checks
     that the kernel launched once a block."""
-    stage, n, shape, xseed, wseed, zero = CASES[name]
+    stage, n, shape, xseed, wseed, zero = CUDA_CASES[name]
     rng = np.random.default_rng(wseed)
     blocks, c_in = [], shape[-1]
     for _ in range(n):
@@ -295,7 +361,7 @@ def cuda_case(name, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", list(CUDA_CASES))
 def test_cuda_kernel_matches_plain(cuda, name):
     x, fused, y = cuda_case(name, cuda)
     torch.backends.cudnn.allow_tf32 = False

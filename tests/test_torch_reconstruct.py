@@ -258,12 +258,30 @@ def test_reconstruct_raises_at_the_stitch(jax_chain, models, tmp_path, cache):
     with pytest.raises(NotImplementedError, match="stitch"):
         TRc.reconstruct(rgb, rgb, jc["mask_u8"], TRc.FitResult(*jc["fit"]),
                         models[0], models[1], out_dir=str(tmp_path),
-                        cache=cache, timer=timer)
+                        cache=cache, timer=timer, device="cpu")
     assert [r["stage"] for r in timer.records][-1] == "normal2depth"
     assert os.path.exists(tmp_path / "depth_front.npy") == cache
     with pytest.raises(NotImplementedError, match="D2"):
         TRc.reconstruct(rgb, rgb, jc["mask_u8"], TRc.FitResult(*jc["fit"]),
-                        models[0], models[1])
+                        models[0], models[1], device="cpu")
+
+
+def test_reconstruct_defaults_to_the_card(jax_chain, models, monkeypatch):
+    """reconstruct() without ``device`` runs on the card: where there is
+    none it raises resolve's RuntimeError before any stage runs, and it
+    does not fall back to the CPU the body models live on."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    ran = []
+    monkeypatch.setattr(TRc, "_device_stages",
+                        lambda *a, **k: ran.append(a))
+    jc = jax_chain
+    rgb = np.zeros((SIZE, SIZE, 3), np.uint8)
+    assert models[0].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        TRc.reconstruct(rgb, rgb, jc["mask_u8"], TRc.FitResult(*jc["fit"]),
+                        models[0], models[1], cache=False)
+    assert ran == []
 
 
 @pytest.mark.parametrize("writer,reader", [(TRc, JR), (JR, TRc), (TRc, TRc)])

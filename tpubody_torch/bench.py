@@ -70,7 +70,7 @@ def layer_split(step, images: torch.Tensor, iters: int) -> Dict[str, float]:
                                          out.rotmats, out.shape,
                                          pose_is_rotmat=True)
         ev[3].record()
-        fused_lbs.fused_lbs(layouts.basis, layouts.wT, feat, g, None,
+        fused_lbs.fused_lbs(layouts, feat, g, None,
                             "bf16x3")        # forward_batch_verts' default
         ev[4].record()
         torch.cuda.synchronize()

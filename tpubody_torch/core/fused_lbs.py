@@ -13,8 +13,11 @@ The batched SMPL forward splits into
       [posedirs | shapedirs | v_template], blended transforms from the
       skinning weights, and their application, written as (F, V, 3).
 
-The per-model layouts (basis (3, K, V), weights (J, V), joint bases) are
-computed once per body model and cached on it (:func:`model_layouts`).
+The per-model layouts (basis (3, K, V), weights (J, V), joint bases, and
+the kernel's bf16 planes of basis and weights) are computed once per body
+model and cached on it (:func:`model_layouts`).  The kernel's entry point
+splits the per-frame rows feat and g the same way on the card, in a pass
+of its own before the products.
 
 ``fused_lbs`` launches the kernel for CUDA tensors and raises if it
 cannot; it uses :func:`fused_lbs_reference`, the same arithmetic in plain
@@ -32,15 +35,63 @@ from tpubody_torch.core import lbs as lbs_lib
 from tpubody_torch.core.rotations import rodrigues
 
 PRECISIONS = ("highest", "bf16x3")
+TILE = 64    # frames and vertices a block of the kernel covers
 
 
 class LBSLayouts(NamedTuple):
-    """Per-model constants in the layouts the kernel reads."""
+    """Per-model constants: the plain version's fp32 matrices and the
+    kernel's split planes."""
 
     basis: torch.Tensor        # (3, K, V): [posedirs | shapedirs | v_template]
     wT: torch.Tensor           # (J, V) skinning weights, transposed
     base_joints: torch.Tensor  # (J, 3)  j_regressor @ v_template
     j_shape: torch.Tensor      # (J, 3, S) j_regressor @ shapedirs
+    planes: torch.Tensor       # (3, Vp / 16, 3 * KS + JS, 32, 8) bf16
+
+
+def _ksteps(n: int) -> int:
+    return (n + 15) // 16
+
+
+def _round_up(n: int, m: int) -> int:
+    return (n + m - 1) // m * m
+
+
+def split_planes(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` -> (3, *x.shape) bf16 planes hi, lo, lo2: hi = bf16(x),
+    lo = bf16(x - hi), lo2 = bf16(x - hi - lo) (each difference exact in
+    fp32), so |x - hi - lo - lo2| <= 2^-24 |x|.  hi and lo are
+    :func:`_split_bf16`'s parts bit for bit."""
+    x = x.float()
+    planes = torch.empty((3,) + tuple(x.shape), dtype=torch.bfloat16,
+                         device=x.device)
+    planes[0] = x                       # each assignment rounds to nearest
+    r = x - planes[0]                   # bf16 widened exactly: f32 difference
+    planes[1] = r
+    planes[2] = r - planes[1]
+    return planes
+
+
+def pack_vertex_planes(basis: torch.Tensor, wT: torch.Tensor) -> torch.Tensor:
+    """The model's matrices as the kernel's B operand (columns: vertices),
+    split once: (3, K, V) basis and (J, V) weights -> (3 planes, Vp / 16,
+    3 * KS + JS items, 32 lanes, 8) bf16, with K and J padded with zeros to
+    16 * KS and 16 * JS and V to Vp, a multiple of 64.  Item c * KS + s is
+    k step s of coordinate c, item 3 * KS + s k step s of the weights.  The
+    8 values of lane (g, t) are the mma.sync m16n8k16 B fragments (b0, b1)
+    of column tiles 0 and 1 of the 16 vertices: value ntile * 4 + kh * 2 +
+    half is row k = kh * 8 + 2 * t + half, vertex ntile * 8 + g."""
+    _, K, V = basis.shape
+    J = wT.shape[0]
+    KS, JS = _ksteps(K), _ksteps(J)
+    Vp = _round_up(V, TILE)
+    m = basis.new_zeros((16 * (3 * KS + JS), Vp), dtype=torch.float32)
+    for c in range(3):
+        m[16 * KS * c:16 * KS * c + K, :V] = basis[c]
+    m[48 * KS:48 * KS + J, :V] = wT
+    p = split_planes(m).view(3, 3 * KS + JS, 2, 4, 2, Vp // 16, 2, 8)
+    return p.permute(0, 5, 1, 7, 3, 6, 2, 4).reshape(
+        3, Vp // 16, 3 * KS + JS, 32, 8).contiguous()
 
 
 def model_layouts(model) -> LBSLayouts:
@@ -60,11 +111,14 @@ def make_layouts(v_template, shapedirs, posedirs, j_regressor,
     """Kernel layouts from the raw model tensors (V, 3), (V, 3, S),
     (V, 3, P), (J, V), (V, J)."""
     basis = torch.cat([posedirs, shapedirs, v_template[:, :, None]], dim=2)
+    basis = basis.permute(1, 2, 0).contiguous()
+    wT = weights.t().contiguous()
     return LBSLayouts(
-        basis=basis.permute(1, 2, 0).contiguous(),
-        wT=weights.t().contiguous(),
+        basis=basis,
+        wT=wT,
         base_joints=torch.matmul(j_regressor, v_template),
         j_shape=torch.einsum("jv,vcs->jcs", j_regressor, shapedirs),
+        planes=pack_vertex_planes(basis, wT),
     )
 
 
@@ -128,48 +182,58 @@ def fused_lbs_reference(basis: torch.Tensor, wT: torch.Tensor,
 
 
 def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...],
-           device: torch.device) -> None:
+           device: torch.device, dtype: torch.dtype = torch.float32) -> None:
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected float32")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
 
 
-def fused_lbs(basis: torch.Tensor, wT: torch.Tensor, feat: torch.Tensor,
-              g: torch.Tensor, trans: Optional[torch.Tensor] = None,
+def fused_lbs(layouts: LBSLayouts, feat: torch.Tensor, g: torch.Tensor,
+              trans: Optional[torch.Tensor] = None,
               precision: str = "bf16x3") -> torch.Tensor:
     """Fused LBS -> verts (F, V, 3).
 
-    basis (3, K, V), wT (J, V), feat (F, K), g (F, J, 12), trans (F, 3) or
-    None, all float32 and contiguous.  CUDA tensors go through the kernel
-    (or this raises); CPU tensors through :func:`fused_lbs_reference`."""
+    ``layouts`` from :func:`model_layouts`; feat (F, K), g (F, J, 12) from
+    :func:`lbs_prologue` and trans (F, 3) or None, float32 and contiguous.
+    On CUDA the kernel reads the model's planes and splits the frames'
+    rows into planes of its own (or this raises); on the CPU
+    :func:`fused_lbs_reference` takes the fp32 matrices."""
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
-    device = basis.device
+    device = layouts.basis.device
     if device.type == "cpu":
-        return fused_lbs_reference(basis, wT, feat, g, trans, precision)
+        return fused_lbs_reference(layouts.basis, layouts.wT, feat, g, trans,
+                                   precision)
     if device.type != "cuda":
         raise ValueError(f"fused_lbs runs on CUDA or CPU tensors, got {device}")
-    K, V = basis.shape[1], basis.shape[2]
-    J, F = wT.shape[0], feat.shape[0]
-    _check("basis", basis, (3, K, V), device)
-    _check("wT", wT, (J, V), device)
+    K, V = layouts.basis.shape[1], layouts.basis.shape[2]
+    J, F = layouts.wT.shape[0], feat.shape[0]
+    KS, JS = _ksteps(K), _ksteps(J)
+    _check("layouts.planes", layouts.planes,
+           (3, _round_up(V, TILE) // 16, 3 * KS + JS, 32, 8), device,
+           torch.bfloat16)
     _check("feat", feat, (F, K), device)
     _check("g", g, (F, J, 12), device)
     if trans is not None:
         _check("trans", trans, (F, 3), device)
     out = torch.empty((F, V, 3), dtype=torch.float32, device=device)
+    # the frames' planes: hi, lo (and lo2 for "highest"), filled by the kernel
+    frm = torch.empty((2 if precision == "bf16x3" else 3,
+                       _round_up(F, TILE) // 16, KS + 12 * JS, 32, 8),
+                      dtype=torch.bfloat16, device=device)
     lib = native.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.tpubody_fused_lbs(
-            basis.data_ptr(), wT.data_ptr(), feat.data_ptr(), g.data_ptr(),
-            None if trans is None else trans.data_ptr(), out.data_ptr(),
-            F, V, K, J, int(precision == "bf16x3"), ctypes.c_void_p(stream))
+            layouts.planes.data_ptr(), feat.data_ptr(), g.data_ptr(),
+            frm.data_ptr(), None if trans is None else trans.data_ptr(),
+            out.data_ptr(), F, V, K, J, int(precision == "bf16x3"),
+            ctypes.c_void_p(stream))
     native.check(err, "fused_lbs launch")
     native.LAUNCHES["fused_lbs"] += 1
     return out
@@ -198,5 +262,4 @@ def lbs_forward_batch_fused(
     feat, g = lbs_prologue(layouts, parents, poses, beta, pose_is_rotmat)
     if trans is not None:
         trans = trans.contiguous()
-    return fused_lbs(layouts.basis, layouts.wT, feat, g, trans,
-                     kernel_precision)
+    return fused_lbs(layouts, feat, g, trans, kernel_precision)

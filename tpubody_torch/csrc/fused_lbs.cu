@@ -1,5 +1,5 @@
-// fused_lbs: batched SMPL-family linear blend skinning, one pass per
-// (vertex tile, frame tile), for Hopper (sm_90a).
+// fused_lbs: batched SMPL-family linear blend skinning on the tensor cores,
+// one pass per (64-frame, 64-vertex) tile, for Hopper (sm_90a).
 //
 // Replaces: tpubody/core/pallas_lbs.py::_fused_kernel (the Pallas TPU
 // kernel behind tpubody.models.smpl.forward_batch_verts).  It computes the
@@ -13,203 +13,352 @@
 //                 the blended transform, e = row * 4 + col)
 //   out[f, v, r] = T[.., r*4 + 0..2] . v[f, v, :] + T[.., r*4 + 3] + trans[f, r]
 //
-// What bounds it on an H100 SXM (data sheet: 3.35 TB/s HBM, 67 TFLOP/s
-// fp32 outside the tensor cores): at the flagship shape F = 512 frames,
-// V = 6890, J = 24, K = 218 one (frame, vertex) costs ~1,900 fp32 FLOP
-// (1,308 blendshape + 576 blend + ~24 apply), 6.7 GFLOP in all, ~100 us
-// on the CUDA cores; the bytes it must move are ~62 MB (42.3 MB output,
-// 18.0 MB basis, 0.7 MB weights, ~1 MB per-frame inputs), ~18.5 us.  So on
-// CUDA cores the kernel is bound by operations; "bf16x3" triples the
-// multiply-adds of the two contractions (hi*hi + hi*lo + lo*hi) and is
-// three times further from the memory bound.  A tensor-core (mma/wgmma
-// bf16) version of the split would be memory-bound; that is later work.
+// What bounds it on an H100 SXM (data sheet: 989 TFLOP/s dense bf16 on the
+// tensor cores, 3.35 TB/s HBM): at the flagship shape F = 512, V = 6890,
+// J = 24, K = 218 the two contractions are 2 * (3 * 218 + 12 * 24) = 1,884
+// operations a (frame, vertex), 6.65 GFLOP; "bf16x3" does each as three
+// bf16 products, 19.9 GFLOP, 0.0214 ms at the bf16 rate (the apply step,
+// 24 fp32 operations a point, adds 1.3 us on the CUDA cores).  The bytes
+// it must move take 0.0185 ms: 42.3 MB of output, 18.0 MB of basis, the
+// weights and the per-frame inputs.  So it sits at the ridge: bound by
+// operations in bf16x3, and in "highest" (six products) twice as far.
 //
-// What the design does about it: one thread per vertex, 128 vertices and
-// 8 frames per block.  The block stages its frames' features (transposed
-// to [k][frame], so one k reads the 8 frames with two 16-byte shared
-// loads, a broadcast) and their 3x4 transforms in shared memory; in the
-// bf16x3 mode they are staged already split into hi and lo parts.  Each
-// thread streams its vertex's K basis columns once per frame tile (the
-// 18 MB basis stays resident in the 50 MB L2 across frame tiles), keeping
-// 3 x 8 sums in registers, so DRAM traffic is about one read of the basis
-// and one write of the output.  It then blends its J weights into the 12
-// transform entries frame by frame, applies them, adds trans and writes
-// (F, V, 3) directly.  Both ragged edges are masked; nothing is padded.
-// The wrapper (tpubody_torch/core/fused_lbs.py) allocates the output; the
-// kernel runs on the caller's stream, allocates nothing, synchronises
-// nothing, and the entry point returns cudaGetLastError().
+// What the design does about it.  Both contractions are mma.sync m16n8k16
+// (bf16 in, f32 sums), with M over frames and N over vertices.  mma.sync
+// rather than wgmma: the operands are read once per block straight from L2
+// into registers (no shared-memory staging, no descriptors), the work per
+// block is small (K = 224 for the basis, 32 for the weights), and the 15
+// accumulators a (frame, vertex) needs (3 for v, 12 for T) would not fit a
+// wgmma tile's register budget.  Each contraction is split into one
+// product per coordinate c (3) and per transform entry e (12), so that the
+// accumulator fragments of v and of every T entry for one (frame, vertex)
+// land in the same register of the same thread, and the apply step needs
+// no exchange between threads: a thread blends its T entry by entry
+// straight into the output (out_r += T_re * v_e), so only 3 x 4 sums of v,
+// 4 of T and 4 of out stay live per fragment.
+//   * Operands are split once, outside every loop, into bf16 planes in
+//     the order of the mma fragments, so that a lane loads one 16-byte word
+//     per (plane, k step, fragment) and the products split nothing.  The
+//     model's basis and weights (hi, lo, lo2) when the model's layouts are
+//     built (core/fused_lbs.py model_layouts).  The per-frame feat and g
+//     (hi, lo, and lo2 for "highest" only) by split_frames_kernel, a pass
+//     of the same entry point just before the products: 1.2 MB at F = 512,
+//     into a buffer the wrapper allocates.  Splitting them in registers as
+//     the products load them instead repeats the split in every vertex
+//     tile (108 blocks x 4 warps a fragment); at about 40 instructions a
+//     fragment against 6 to 36 mma.sync each, that measured 2.2 to 2.6x
+//     slower.  K is padded with zeros to 224 (14 k steps), J to 32, frames
+//     and vertices to multiples of 64.
+//   * A block is 8 warps over 64 frames x 64 vertices: a warp owns 32
+//     frames (2 row tiles) x 16 vertices (2 column tiles).  Each basis
+//     fragment is read from L2 once per frame tile, F / 64 = 8 times in
+//     all (64 with 8-frame tiles), and serves 2 row tiles from registers.
+//   * The output goes through shared memory: each thread writes its
+//     values, then each warp writes whole rows (one frame, 64 vertices x
+//     3 coordinates, 768 contiguous bytes) in 16-byte stores, with scalar
+//     stores only for the unaligned head and tail of a row.  The ragged
+//     frame and vertex edges are masked there; the output is not padded.
+//
+// Precision (bf16 keeps 8 significant bits: |x - bf16(x)| <= 2^-8 |x|).
+// "bf16x3": x = hi + lo + r with hi = bf16(x), lo = bf16(x - hi), |r| <=
+// 2^-16 |x|; hi*hi + hi*lo + lo*hi leave out lo*lo and the r terms, about
+// 2^-15 of each term, and sum in f32: the function of _dot3
+// (tpubody/core/pallas_lbs.py:48-60), with its planes bit for bit; the
+// plain version is held to it at a relative 1e-4.  "highest": a third
+// plane lo2 = bf16(x - hi - lo), |x - hi - lo - lo2| <= 2^-24 |x|, and the
+// six products hi*hi, hi*lo, lo*hi, hi*lo2, lo2*hi, lo*lo (the six-pass
+// bf16 that Precision.HIGHEST is on the TPU's matrix unit); what they
+// leave out is a few units of 2^-24 of each term, f32 rounding, so the
+// result is an fp32 product in another summation order, held to the fp32
+// torch.matmul at max |d| < 2e-5.  Each bf16 x bf16 product is exact in
+// f32; the smallest products go first.
+//
+// The wrapper (tpubody_torch/core/fused_lbs.py) allocates the output and
+// the frames' planes; the kernels run on the caller's stream, allocate
+// nothing, synchronise nothing, and the entry point returns
+// cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;  // vertices per block, one per thread
-constexpr int kFrames = 8;     // frames per block
+constexpr int kThreads = 256;   // 8 warps
+constexpr int kBF = 64;         // frames a block
+constexpr int kBV = 64;         // vertices a block
+constexpr int kLdo = kBV * 3 + 4;   // staging row, floats (16-byte rows)
+constexpr int kSmem = kBF * kLdo * (int)sizeof(float);
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+__device__ __forceinline__ void mma(float (&c)[4], const uint4& a,
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
 }
 
-template <bool kSplit>
-__global__ void __launch_bounds__(kThreads)
-fused_lbs_kernel(const float* __restrict__ basis,  // (3, K, V)
-                 const float* __restrict__ wT,     // (J, V)
-                 const float* __restrict__ feat,   // (F, K)
-                 const float* __restrict__ g,      // (F, J, 12)
-                 const float* __restrict__ trans,  // (F, 3) or nullptr
-                 float* __restrict__ out,          // (F, V, 3)
-                 int F, int V, int K, int J) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int kParts = kSplit ? 2 : 1;
-  const int JE = J * 12;
-  // feat_s[part][k][frame], g_s[part][frame][j * 12 + e]
-  float* feat_s = smem;
-  float* g_s = smem + kParts * K * kFrames;
-  const int f0 = blockIdx.y * kFrames;
-  const int nf = min(kFrames, F - f0);
+// bf16x2 of (lo, hi), lo in the lower half; and each half widened back.
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+__device__ __forceinline__ float lower(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float upper(uint32_t u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
 
-  for (int i = threadIdx.x; i < kFrames * K; i += kThreads) {
-    const int f = i / K, k = i - f * K;
-    const float x = f < nf ? feat[(size_t)f0 * K + i] : 0.f;
-    if (kSplit) {
-      const float hi = bf16_round(x);
-      feat_s[k * kFrames + f] = hi;
-      feat_s[(K + k) * kFrames + f] = bf16_round(x - hi);
-    } else {
-      feat_s[k * kFrames + f] = x;
+// The per-frame rows as the products' A operand, split into P planes: one
+// warp a (16-frame row tile, item) fragment, item s < KS k step s of feat
+// (F, K), item KS + e * JS + s k step s of entry e of g (F, J, 12).  Lane
+// (g, t) writes word (m, item, lane) of each plane: register q = kh * 2 +
+// rh holds frame 16 m + 8 rh + g, columns 16 s + 8 kh + 2 t + (0, 1) (the
+// lower bf16 first), zero past F, K and J.  Each residual x - bf16(x) is
+// exact in f32, so the planes are split_planes' (core/fused_lbs.py) bit
+// for bit.
+template <int P>
+__global__ void __launch_bounds__(256)
+split_frames_kernel(const float* __restrict__ feat,
+                    const float* __restrict__ gm, uint4* __restrict__ frm,
+                    int F, int K, int J, int KS, int JS, int n_frag,
+                    size_t fplane) {
+  const int frag = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (frag >= n_frag) return;
+  const int IF = KS + 12 * JS;
+  const int m = frag / IF, item = frag % IF;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // feat: rows of K, columns contiguous; g entry e: rows of 12 J, columns
+  // 12 apart
+  const bool is_feat = item < KS;
+  const float* base = is_feat ? feat : gm + (item - KS) / JS;
+  const size_t ld = is_feat ? (size_t)K : (size_t)J * 12;
+  const int cols = is_feat ? K : J, cs = is_feat ? 1 : 12;
+  const int s = is_feat ? item : (item - KS) % JS;
+  uint32_t w[P][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int f = 16 * m + 8 * (q & 1) + g;
+    const int c = 16 * s + 8 * (q >> 1) + 2 * t;
+    float x0 = 0.0f, x1 = 0.0f;
+    if (f < F) {
+      const float* row = base + f * ld;
+      if (c < cols) x0 = __ldg(row + (size_t)c * cs);
+      if (c + 1 < cols) x1 = __ldg(row + (size_t)(c + 1) * cs);
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const uint32_t u = bf16x2(x0, x1);
+      w[p][q] = u;
+      x0 -= lower(u);
+      x1 -= upper(u);
     }
   }
-  for (int i = threadIdx.x; i < kFrames * JE; i += kThreads) {
-    const int f = i / JE;
-    const float x = f < nf ? g[(size_t)f0 * JE + i] : 0.f;
-    if (kSplit) {
-      const float hi = bf16_round(x);
-      g_s[i] = hi;
-      g_s[kFrames * JE + i] = bf16_round(x - hi);
-    } else {
-      g_s[i] = x;
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    frm[p * fplane + (size_t)frag * 32 + lane] =
+        make_uint4(w[p][0], w[p][1], w[p][2], w[p][3]);
+}
+
+// c += a . b over the split planes: P = 2 is bf16x3 (lo*hi, hi*lo, hi*hi),
+// P = 3 "highest" (lo2*hi, hi*lo2, lo*lo, lo*hi, hi*lo, hi*hi), smallest
+// first.  b: column tile `n` of the plane's 16-byte word (x, y or z, w).
+template <int P>
+__device__ __forceinline__ void mma_split(float (&c)[4], const uint4 (&a)[P],
+                                          const uint4 (&b)[P], int n) {
+  auto b0 = [&](int p) { return n ? b[p].z : b[p].x; };
+  auto b1 = [&](int p) { return n ? b[p].w : b[p].y; };
+  if constexpr (P == 3) {
+    mma(c, a[2], b0(0), b1(0));
+    mma(c, a[0], b0(2), b1(2));
+    mma(c, a[1], b0(1), b1(1));
+  }
+  mma(c, a[1], b0(0), b1(0));
+  mma(c, a[0], b0(1), b1(1));
+  mma(c, a[0], b0(0), b1(0));
+}
+
+// vtx: (3 planes, V/16, IV, 32 lanes) 16-byte words, IV = 3 * KS + JS
+//      items: basis coordinate c, k step s at c * KS + s; weights, k step
+//      s at 3 * KS + s.  Word of lane (g, t): column tile 0 (b0, b1), then
+//      column tile 1, of vertices 16 * tile + {0, 8} + g.
+// frm: (P planes, F/16, IF, 32 lanes) 16-byte words, IF = KS + 12 * JS
+//      items: feat, k step s at s; g entry e, k step s at KS + e * JS + s.
+//      Word of lane (g, t): the A fragment (a0, a1, a2, a3), written by
+//      split_frames_kernel.
+// vplane, fplane: words a plane.
+template <int P>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_lbs_kernel(const uint4* __restrict__ vtx, const uint4* __restrict__ frm,
+                 const float* __restrict__ trans, float* __restrict__ out,
+                 int F, int V, int KS, int JS, size_t vplane, size_t fplane) {
+  extern __shared__ __align__(16) float sOut[];   // [kBF][kLdo]
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2;        // 0..1: frames wm * 32 ..
+  const int wn = warp & 3;         // 0..3: vertices wn * 16 ..
+  const int f0 = blockIdx.y * kBF, v0 = blockIdx.x * kBV;
+  const int IV = 3 * KS + JS, IF = KS + 12 * JS;
+  const uint4* vb = vtx + ((size_t)(blockIdx.x * 4 + wn) * IV) * 32 + lane;
+  const uint4* fb[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    fb[i] = frm + ((size_t)(blockIdx.y * 4 + wm * 2 + i) * IF) * 32 + lane;
+
+  // ---- v = feat . basis, per coordinate
+  float v[3][2][2][4];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[c][i][n][q] = 0.0f;
+#pragma unroll 2
+  for (int s = 0; s < KS; ++s) {
+    uint4 a[2][P];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int p = 0; p < P; ++p) a[i][p] = __ldg(fb[i] + p * fplane + s * 32);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      uint4 b[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        b[p] = __ldg(vb + p * vplane + (c * KS + s) * 32);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int n = 0; n < 2; ++n) mma_split<P>(v[c][i][n], a[i], b, n);
+    }
+  }
+
+  // ---- T = g . wT entry by entry, applied as it comes: out_r = sum_e
+  // T_re * v_e + T_r3 + trans_r, staged in shared memory
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll 1
+    for (int r = 0; r < 3; ++r) {
+      float o[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) o[n][q] = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float T[2][4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) T[n][q] = 0.0f;
+        for (int s = 0; s < JS; ++s) {
+          uint4 a[P], b[P];
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            a[p] = __ldg(fb[i] + p * fplane + (KS + (r * 4 + e) * JS + s) * 32);
+            b[p] = __ldg(vb + p * vplane + (3 * KS + s) * 32);
+          }
+#pragma unroll
+          for (int n = 0; n < 2; ++n) mma_split<P>(T[n], a, b, n);
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            o[n][q] = e < 3 ? fmaf(T[n][q], v[e < 3 ? e : 0][i][n][q], o[n][q])
+                            : o[n][q] + T[n][q];
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int fl = wm * 32 + i * 16 + g + 8 * (q >> 1);
+        const float tr = trans != nullptr && f0 + fl < F
+                             ? __ldg(trans + (size_t)(f0 + fl) * 3 + r)
+                             : 0.0f;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int vl = wn * 16 + n * 8 + 2 * t + (q & 1);
+          sOut[fl * kLdo + vl * 3 + r] = o[n][q] + tr;
+        }
+      }
     }
   }
   __syncthreads();
 
-  const int v = blockIdx.x * kThreads + threadIdx.x;
-  if (v >= V) return;
-
-  // Blendshaped rest vertex of each frame, in registers.
-  float acc[kFrames][3];
-#pragma unroll
-  for (int f = 0; f < kFrames; ++f) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) acc[f][c] = 0.f;
-  }
-  const size_t plane = (size_t)K * V;
-#pragma unroll 2
-  for (int k = 0; k < K; ++k) {
-    float b[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) b[c] = __ldg(basis + c * plane + (size_t)k * V + v);
-    const float4* fs = reinterpret_cast<const float4*>(feat_s + k * kFrames);
-    const float4 h0 = fs[0], h1 = fs[1];
-    const float ah[kFrames] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
-    if (kSplit) {
-      const float4* fl = reinterpret_cast<const float4*>(feat_s + (K + k) * kFrames);
-      const float4 l0 = fl[0], l1 = fl[1];
-      const float al[kFrames] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
-      float bh[3], bl[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        bh[c] = bf16_round(b[c]);
-        bl[c] = bf16_round(b[c] - bh[c]);
-      }
-#pragma unroll
-      for (int f = 0; f < kFrames; ++f) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          acc[f][c] = fmaf(ah[f], bh[c], fmaf(ah[f], bl[c], fmaf(al[f], bh[c], acc[f][c])));
-      }
-    } else {
-#pragma unroll
-      for (int f = 0; f < kFrames; ++f) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) acc[f][c] = fmaf(ah[f], b[c], acc[f][c]);
-      }
-    }
-  }
-
-  // Blend the 3x4 transforms and apply them, frame by frame.
-#pragma unroll
-  for (int f = 0; f < kFrames; ++f) {
-    if (f >= nf) break;
-    float T[12];
-#pragma unroll
-    for (int e = 0; e < 12; ++e) T[e] = 0.f;
-    const float* gh = g_s + f * JE;
-    const float* gl = g_s + (kFrames + f) * JE;
-    for (int j = 0; j < J; ++j) {
-      const float w = __ldg(wT + (size_t)j * V + v);
-      const float4* gh4 = reinterpret_cast<const float4*>(gh + j * 12);
-      const float4 p0 = gh4[0], p1 = gh4[1], p2 = gh4[2];
-      const float gv[12] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y,
-                            p1.z, p1.w, p2.x, p2.y, p2.z, p2.w};
-      if (kSplit) {
-        const float4* gl4 = reinterpret_cast<const float4*>(gl + j * 12);
-        const float4 q0 = gl4[0], q1 = gl4[1], q2 = gl4[2];
-        const float gvl[12] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y,
-                               q1.z, q1.w, q2.x, q2.y, q2.z, q2.w};
-        const float wh = bf16_round(w), wl = bf16_round(w - wh);
-#pragma unroll
-        for (int e = 0; e < 12; ++e)
-          T[e] = fmaf(gv[e], wh, fmaf(gv[e], wl, fmaf(gvl[e], wh, T[e])));
+  // ---- rows out: one frame's 64 vertices x 3 are contiguous in (F, V, 3)
+  const int L = min(kBV, V - v0) * 3;
+  for (int fl = warp; fl < kBF; fl += kThreads / 32) {
+    const int f = f0 + fl;
+    if (f >= F) break;
+    const size_t gs = ((size_t)f * V + v0) * 3;
+    const int head = min(L, (int)((4 - (gs & 3)) & 3));
+    const int nb = (L - head) >> 2;
+    const float* src = sOut + fl * kLdo;
+    float* dst = out + gs;
+    if (lane < head) dst[lane] = src[lane];
+    for (int u = lane; u < nb; u += 32) {
+      const int o = head + 4 * u;
+      float4 w;
+      if (head & 1) {
+        w = make_float4(src[o], src[o + 1], src[o + 2], src[o + 3]);
+      } else if (head & 2) {
+        const float2 lo = *reinterpret_cast<const float2*>(src + o);
+        const float2 hi = *reinterpret_cast<const float2*>(src + o + 2);
+        w = make_float4(lo.x, lo.y, hi.x, hi.y);
       } else {
-#pragma unroll
-        for (int e = 0; e < 12; ++e) T[e] = fmaf(gv[e], w, T[e]);
+        w = *reinterpret_cast<const float4*>(src + o);
       }
+      *reinterpret_cast<float4*>(dst + o) = w;
     }
-    const size_t frame = (size_t)f0 + f;
-    const float x = acc[f][0], y = acc[f][1], z = acc[f][2];
-    float t[3] = {0.f, 0.f, 0.f};
-    if (trans != nullptr) {
-#pragma unroll
-      for (int r = 0; r < 3; ++r) t[r] = trans[frame * 3 + r];
-    }
-    float* o = out + (frame * V + v) * 3;
-#pragma unroll
-    for (int r = 0; r < 3; ++r)
-      o[r] = T[r * 4] * x + T[r * 4 + 1] * y + T[r * 4 + 2] * z + T[r * 4 + 3] + t[r];
+    const int rest = head + 4 * nb;
+    if (lane < L - rest) dst[rest + lane] = src[rest + lane];
   }
 }
 
-template <bool kSplit>
-cudaError_t launch(const float* basis, const float* wT, const float* feat,
-                   const float* g, const float* trans, float* out, int F,
-                   int V, int K, int J, cudaStream_t stream) {
-  const int parts = kSplit ? 2 : 1;
-  const size_t smem = (size_t)parts * kFrames * (K + 12 * J) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_lbs_kernel<kSplit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((V + kThreads - 1) / kThreads, (F + kFrames - 1) / kFrames);
-  fused_lbs_kernel<kSplit><<<grid, kThreads, smem, stream>>>(
-      basis, wT, feat, g, trans, out, F, V, K, J);
+template <int P>
+cudaError_t launch(const void* vtx, const float* feat, const float* gm,
+                   void* frm, const float* trans, float* out, int F, int V,
+                   int K, int J, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_lbs_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  const int KS = (K + 15) / 16, JS = (J + 15) / 16;
+  const int VT = (V + kBV - 1) / kBV, FT = (F + kBF - 1) / kBF;
+  const size_t vplane = (size_t)VT * 4 * (3 * KS + JS) * 32;
+  const int n_frag = FT * 4 * (KS + 12 * JS);
+  const size_t fplane = (size_t)n_frag * 32;
+  split_frames_kernel<P><<<(n_frag + 7) / 8, 256, 0, stream>>>(
+      feat, gm, static_cast<uint4*>(frm), F, K, J, KS, JS, n_frag, fplane);
+  const dim3 grid(VT, FT);
+  fused_lbs_kernel<P><<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const uint4*>(vtx), static_cast<const uint4*>(frm), trans,
+      out, F, V, KS, JS, vplane, fplane);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// split = 0: "highest" (fp32 FMAs); split = 1: "bf16x3" (hi/lo bf16 split
-// of both operands of both contractions, three products accumulated in
-// fp32).  trans may be null.  Returns cudaGetLastError() after the launch.
-extern "C" int tpubody_fused_lbs(const float* basis, const float* wT,
-                                 const float* feat, const float* g,
+// vtx: the model's split planes (3, bf16 in fragment order, see above;
+// vertices padded to a multiple of 64); feat (F, K), g (F, J, 12) and trans
+// (F, 3) fp32, trans may be null; frm: room for the frames' planes, 2
+// ("bf16x3", split = 1) or 3 ("highest", split = 0) planes of
+// ceil(F / 64) * 4 * (KS + 12 * JS) * 32 16-byte words.  Two launches on
+// `stream`: the split of the frames, then the products.  Returns
+// cudaGetLastError() after them.
+extern "C" int tpubody_fused_lbs(const void* vtx, const float* feat,
+                                 const float* g, void* frm,
                                  const float* trans, float* out, int F, int V,
-                                 int K, int J, int split, cudaStream_t stream) {
+                                 int K, int J, int split,
+                                 cudaStream_t stream) {
   if (F <= 0 || V <= 0) return (int)cudaSuccess;
+  if (F > 65535 * kBF) return (int)cudaErrorInvalidValue;
   const cudaError_t err =
-      split ? launch<true>(basis, wT, feat, g, trans, out, F, V, K, J, stream)
-            : launch<false>(basis, wT, feat, g, trans, out, F, V, K, J, stream);
+      split ? launch<2>(vtx, feat, g, frm, trans, out, F, V, K, J, stream)
+            : launch<3>(vtx, feat, g, frm, trans, out, F, V, K, J, stream);
   return (int)err;
 }
 

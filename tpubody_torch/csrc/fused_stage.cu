@@ -1,78 +1,79 @@
 // fused_stage: one stride-1 ResNet bottleneck (1x1 -> 3x3 -> 1x1, BatchNorm
-// folded, residual add, relus) in one kernel, one thread block per 8x16
-// pixel tile of one image, on the tensor cores, for Hopper (sm_90a).  A
-// chain of bottlenecks is one launch a block; between blocks the bf16
-// activation goes through device memory, which changes no bit, because a
-// block's output is rounded to bf16 anyway.
+// folded, residual add, relus) in one kernel, on Hopper's warpgroup tensor
+// cores (sm_90a): wgmma with the weights in shared memory, filled by a
+// producer warp through an mbarrier ring.  A chain of bottlenecks is one
+// launch a block; between blocks the bf16 activation goes through device
+// memory, which changes no bit, because a block's output is rounded to
+// bf16 anyway.
 //
 // Replaces: tpubody/models/pallas_resnet.py::_stage_kernel (the Pallas TPU
-// kernel behind run_stage).  It computes the same function; the TPU's shape
-// is not carried over: no channel-major (C, P) layout, no zero ring around
-// the image, no lane padding to 128, no nine circular rolls of a whole
-// image, no mask operand, no packed-int32 roll and so no even-C_mid rule.
-// There a whole 56^2 image sits in fast memory and a 3x3 tap is a lane
-// shift; a Hopper block has 227 KB, so here the unit is a spatial tile in
-// NHWC (channels innermost), conv1 is recomputed on the tile's one-pixel
-// halo, and a 3x3 tap is a shifted row offset into the halo tile of h1 in
-// shared memory.
+// kernel behind run_stage).  It computes the same function.  Like the TPU
+// kernel, it works on the flattened, zero-padded image: pixel (y, x) of
+// image b sits at position s = (1 + b (H + 1) + y) (W + 2) + x + 1 of one
+// sequence that runs over the whole batch (each image's rows are (W + 2)
+// wide, with one zero row between images), so a 3x3 tap is the constant
+// offset (dy - 1)(W + 2) + dx - 1, as the TPU kernel's rolls are.  A block
+// owns a band of kM = 256 consecutive positions: only the two pad columns
+// of each row and the pad row of each image are wasted (1.11x the pixels
+// at 28^2, 1.05x at 56^2, where 8x16 tiles would cover 1.31x at 28^2), and a
+// band may span two images.
 //
 // Inputs (tpubody_torch/models/fused_resnet.py packs the weights once, at
-// fuse_stage time; Xp = X rounded up to a multiple of 16, zero filled):
-//   x  (B, H, W, Cin) bf16, NHWC, contiguous, 16-byte aligned
-//   w1 (Cmid_p, Cin_p) bf16, b1 (Cmid_p) f32
-//   w2 (9, Cmid_p, Cmid_p) bf16: tap-major, tap = dy * 3 + dx, then output
-//      channel, then input channel; b2 (Cmid_p) f32
-//   w3 (Cout_p, Cmid_p) bf16, b3 (Cout_p) f32
-//   wd (Cout_p, Cin_p) bf16 and bd (Cout_p) f32, or null for an identity
-//      residual (then Cin == Cout)
-// Output: y (B, H, W, Cout) bf16.
-// The activations are never padded: the loaders zero-fill channels past
-// Cin and pixels outside the image, the stores mask the ragged right and
-// bottom tiles and channels past Cout.
+// fuse_stage time; Xp = X rounded up to a multiple of 64, zero filled):
+//   x  (B, H, W, Cin) bf16, NHWC, contiguous, 16-byte aligned, Cin % 8 == 0
+//   w1 Cin_p / 64 tiles of (Cmid_p rows, 64) bf16 [k slice]
+//   w2 9 x Cmid_p / 64 tiles of (Cmid_p, 64)      [tap (dy * 3 + dx)][k slice]
+//   w3 tiles of (128 rows, or the rest, 64)      [128-channel chunk][k slice]
+//   wd as w3 over Cin_p, or null for an identity residual (Cin == Cout)
+//   b1, b2 (Cmid_p), b3, bd (Cout_p) f32
+// Each tile is the exact image one wgmma B descriptor reads (K-major, 128
+// bytes a row, 128-byte swizzle: the 16-byte chunk c of row n lands at
+// chunk c ^ (n & 7)), so one cp.async.bulk lands it ready to use: no
+// tensor map, no libcuda call.  Output: y (B, H, W, Cout) bf16, Cout % 8 == 0.
+// Cmid_p is at most 128 (ResNet-50's stages 1 and 2: 64 and 128).
 //
 // Arithmetic, which decides the bits: operands bf16, every product summed
-// in f32 (mma.sync m16n8k16, bf16 in, f32 out), bias added in f32, relu,
-// h1, h2 and y rounded to bf16 to nearest even.  h1 at halo pixels outside
-// the image is written as ZERO: conv2's padding pads h1, and h1 of a zero
-// input would be relu(b1), not 0.  The residual of a widening block is
-// wd . x + bd in f32, unrounded, accumulated with w3 . h2; the residual of
-// an identity block is the bf16 x widened.  The order of the f32 sums
-// differs from the plain PyTorch version's, so the two differ where a sum
-// lands within an f32 rounding of a bf16 boundary: a tolerance, not
-// equality.
+// in f32 (wgmma m64n64k16, bf16 in, f32 out), bias added in f32, relu, h1,
+// h2 and y rounded to bf16 to nearest even.  h1 at positions outside the
+// image is written as ZERO: conv2's padding pads h1, and h1 of a zero input
+// would be relu(b1), not 0.  The residual of a widening block is wd . x +
+// bd in f32, unrounded, accumulated with w3 . h2; the residual of an
+// identity block is the bf16 x widened.  The order of the f32 sums differs
+// from the plain PyTorch version's, so the two differ where a sum lands
+// within an f32 rounding of a bf16 boundary: a tolerance, not equality.
 //
 // What bounds it on an H100 SXM (data sheet: 989 TFLOP/s dense bf16,
 // 3.35 TB/s): a bottleneck at 64 -> 256 channels does 139,264 to 147,456
-// operations a pixel for 640 bytes read and written, about 220 operations
-// a byte, and at 512 -> 128 -> 512 channels 557,056 for 2,048 bytes (272
-// a byte): both sit near the ridge (295), bound by operations once the
-// halo's recomputation (180 pixels of conv1 for 128 of output) is added.
+// operations a pixel for 640 bytes read and written, about 220 a byte, and
+// at 512 -> 128 -> 512 channels 557,056 for 2,048 bytes (272 a byte): both
+// near the ridge (295), bound by operations once conv1's recomputation on
+// the band's halo (2 (W + 2) + 2 positions) is added.
 //
-// What the design does about it: h1 (180 halo pixels) and h2 (128 pixels)
-// never leave shared memory.  Each of the three products (and the
-// downsample) is a loop over K slices through a ring of buffers in shared
-// memory: cp.async brings the next slice of the weights (and, for conv1
-// and the downsample, of x, zero-filled outside the image) while the 8
-// warps (2 along pixels x 4 along channels) multiply the current one with
-// mma.sync on ldmatrix fragments, one barrier a slice; row strides of
-// K + 8 keep ldmatrix free of bank conflicts.  conv1 runs in two passes of
-// 96 halo rows so that its accumulators fit.  Output channels go in chunks
-// of 128, split over the four warps along channels in widths of 16 or 32,
-// so that no warp idles at C_mid = 64.  The last epilogue goes through
-// shared memory (over h1 and the ring, both dead by then): the residual
-// tile comes in and y goes out in 16-byte pieces.  Two blocks on an SM
-// matter more than anything else measured (a build that fits only one is
-// a fifth to nearly a half slower), so registers are capped at 128, the x ring shares its
-// room with h2 where there is no downsample, and of the two builds (K
-// slices of 64 or 32, ring of 2) the first that leaves room for a second
-// block is taken: 92 KB a block at 256 -> 64 -> 256, 87 KB with the
-// downsample (slices of 32), 107 KB at 512 -> 128 -> 512 (slices of 32).  Left for later: wgmma on shared
-// memory descriptors (fragment traffic through ldmatrix is what the tensor
-// cores wait for now), weights shared by more than 128 pixels (they are
-// re-read from L2 for every tile: 170 KB a tile at stage 1, 690 KB at
-// stage 2), TMA, and a chain in one launch.  Tried and dropped: computing
-// only the rows of a bottom tile that lie in the image (4 of 8 at 28^2)
-// gained nothing at stage 2 and cost 7% at stage 1.
+// What the design does about it.  384 threads: warpgroup 0 is the
+// producer (setmaxnreg gives its registers to the consumers), warpgroups 1
+// and 2 are the consumers, 128 band positions each (two m64 row tiles).
+// Every product is wgmma.mma_async m64n64k16 with B (a 64-channel K slice
+// of the weights, 64 or 128 output channels) from a shared-memory
+// descriptor and A from registers, loaded by ldmatrix from shared memory:
+// a 3x3 tap is a row offset that is not aligned to the 8-row core matrices
+// of an A descriptor, and ldmatrix takes one address per row, so the nine
+// taps cost nothing extra; conv1, conv3 and the downsample read A the same
+// way (one code path; x rows are swizzled as the weights are, so ldmatrix
+// is free of bank conflicts).  A round is one K slice: one wgmma group a
+// k step of 16, the next step's A fragments loaded while the current one
+// multiplies.  The K slices move through two mbarrier rings: weights (2
+// to 4 stages, one bulk copy each by one producer thread, complete_tx) and x
+// (kSX stages of 256 rows, cp.async by the 128 producer threads, zero-
+// filled outside the image and past Cin, each thread arriving with
+// cp.async.mbarrier.arrive).  Consumers wait on "full" and release
+// "empty": no block-wide barrier a slice.  h1 (the band and its halo) and
+// h2 never leave shared memory; a named barrier over the 256 consumer
+// threads orders them.  Each weight slice serves 256 output positions,
+// twice what a 128-pixel tile would, so the weights are read from L2 half
+// as often.  The last
+// epilogue goes through shared memory (over h1, dead by then), so that the
+// residual comes in and y goes out in 16-byte pieces.  One block an SM
+// (about 220 KB of shared memory at the widths above).
 //
 // The wrapper allocates the output; the kernel runs on the caller's
 // stream, allocates nothing, synchronises nothing, and the entry point
@@ -80,11 +81,11 @@
 //
 // Timing builds: ablate_fused_stage.py compiles this file with one
 // ABLATE_* macro defined each, which takes a part out (the tensor-core
-// products, the fragment loads, the loads of x or of the weights, the last
-// epilogue, one of the convolutions) or forces one (K slice, ring) build
-// with -DABLATE_KS=.. -DABLATE_S=...  Such a build computes wrong values by
-// design and only its time is read.  With no macro defined, the #if lines
-// below change nothing.
+// products, the A fragment loads, the loads of x or of the weights, the
+// last epilogue, one of the convolutions) or sets the weight ring's depth
+// (-DABLATE_SW=..).  Such a build computes wrong values by design and only
+// its time is read.  With no macro defined, the #if lines below change
+// nothing.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,457 +94,586 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kTH = 8;                        // output tile, rows
-constexpr int kTW = 16;                       // output tile, columns
-constexpr int kTilePix = kTH * kTW;           // 128
-constexpr int kHW = kTW + 2;                  // halo tile width
-constexpr int kHaloPix = (kTH + 2) * kHW;     // 180
-constexpr int kHaloRows = 192;                // 180 rounded up to 12 x 16
-constexpr int kPassRows = kHaloRows / 2;      // conv1 runs in two passes
-constexpr int kThreads = 256;
-constexpr int kNC = 128;                      // output channels per chunk
-constexpr int kMaxSmem = 232448;              // 227 KB a block
-// Two blocks fit an SM if each takes at most this (228 KB an SM, 1 KB of
-// it reserved for each block).
-constexpr int kHalfSmem = (233472 - 2 * 1024) / 2;
+constexpr int kM = 256;                 // band positions a block
+constexpr int kThreads = 384;           // producer warpgroup + 2 consumers
+constexpr int kConsumers = 256;
+// Weight ring stages: the most of 4, 3, 2 that the shared memory holds
+// (4 at 256 -> 64 -> 256 without a downsample, 2 at the other widths of
+// ResNet-50's stages 1 and 2).
+#ifdef ABLATE_SW
+constexpr int kSWMax = ABLATE_SW, kSWMin = ABLATE_SW;
+#else
+constexpr int kSWMax = 4, kSWMin = 2;
+#endif
+constexpr int kSX = 3;                  // x ring stages
+constexpr int kWBytes = 128 * 128;      // weight slice: <= 128 rows x 128 B
+constexpr int kXBytes = kM * 128;       // x slice: 256 rows x 128 B
+constexpr int kMaxSmem = 232448;        // 227 KB a block
 
-__host__ __device__ inline int round16(int c) { return (c + 15) & ~15; }
+__host__ __device__ inline int round64(int c) { return (c + 63) & ~63; }
 
-// bf16 elements of shared memory for one block, with K slices `ks` wide
-// in a ring of `stages` buffers.
-__host__ __device__ inline int smem_elems(int cmid_p, bool down, int ks,
-                                          int stages) {
-  const int ldh = cmid_p + 8;
-  const int ld = ks + 8;
-  const int h2 = kTilePix * ldh;
-  const int a = stages * (down ? kTilePix : kPassRows) * ld;
-  const int tail = down ? h2 + a : (h2 > a ? h2 : a);
-  return kHaloRows * ldh + stages * kNC * ld + tail;
+// Shared memory of one block, bytes from a 1024-aligned base: the two
+// rings, h1 over the band and its halo, h2 (over the x ring when there is
+// no downsample: x is then read by conv1 only), the barriers.
+struct Layout {
+  int sw, h1_rows, ldh, x_off, h1_off, h2_off, bar_off, pix_off, bytes;
+};
+
+__host__ __device__ inline Layout layout_sw(int W, int cmid_p, bool down,
+                                            int sw) {
+  Layout L;
+  L.sw = sw;
+  L.h1_rows = (kM + 2 * (W + 2) + 2 + 63) & ~63;
+  L.ldh = cmid_p + 8;                   // row stride (bf16) of h1 and h2
+  const int h2_bytes = kM * L.ldh * 2;
+  const int ring_x = kSX * kXBytes;
+  L.x_off = sw * kWBytes;
+  int end = L.x_off + ring_x;
+  if (down) {
+    L.h2_off = end;
+    end += h2_bytes;
+  } else {
+    L.h2_off = L.x_off;
+    end = L.x_off + (h2_bytes > ring_x ? h2_bytes : ring_x);
+  }
+  L.h1_off = end;
+  end += L.h1_rows * L.ldh * 2;
+  L.bar_off = (end + 7) & ~7;
+  L.pix_off = L.bar_off + 2 * (kSWMax + kSX) * 8;     // kM ints
+  L.bytes = L.pix_off + kM * 4 + 1024;                // + base alignment
+  return L;
+}
+
+__host__ __device__ inline Layout layout(int W, int cmid_p, bool down) {
+  Layout L = layout_sw(W, cmid_p, down, kSWMax);
+  for (int sw = kSWMax - 1; sw >= kSWMin && L.bytes > kMaxSmem; --sw)
+    L = layout_sw(W, cmid_p, down, sw);
+  return L;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// 16 bytes global -> shared without passing through registers; zeros
-// where `pred` is false (nothing is read then).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+// ---- mbarriers
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+// Spins until the phase of parity `phase` has completed.  A wait that
+// outlasts some seconds means a broken schedule: trap (the launch then
+// fails with an error) rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
+  uint32_t done, tries = 0;
+  do {
+    if (++tries == (1u << 30)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(phase)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// One contiguous global -> shared copy, completion counted on `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// 16 bytes global -> shared; zeros where `pred` is false (nothing read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool pred) {
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(n));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Wait until at most N of this thread's committed groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// Arrive on `bar` once this thread's earlier cp.async copies have landed.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
 }
 
+// ---- warpgroup products
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+#ifdef ABLATE_FRAGMENTS
+  return;
+#endif
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// Descriptor of a K-major B tile with 128-byte rows and 128-byte swizzle:
+// start address >> 4, leading offset unused (1), stride 1024 bytes between
+// groups of 8 rows, layout type 1 (128-byte swizzle).
+__device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+template <int V>
+struct Int {
+  static constexpr int value = V;
+};
+
+// d (64 x 64, f32, this thread's 32) += a (64 x 16, bf16, from registers:
+// this warp's 16 rows as an mma.m16n8k16 A fragment) . B (from `desc`).
+__device__ __forceinline__ void wgmma_64x64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc) {
 #ifdef ABLATE_MMA
   return;
 #endif
+  // scale-d = 1 (accumulate), scale-a = scale-b = 1, B not transposed
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// acc += act . wt^T over `ksteps` steps of 16 along K.  A warp owns MT
-// row tiles of 16 and up to two pairs of column tiles of 8 (`npairs`).
-// a_addr[i]: shared address of the row this lane names to ldmatrix for
-// row tile i (row l & 15, column (l >> 4) * 8) at the slice's first
-// column; b_addr: the same for the weights (row (l & 7) + (l >> 4) * 8 of
-// the warp's first pair, column ((l >> 3) & 1) * 8).
-template <int MT>
-__device__ __forceinline__ void mma_slice(float (&acc)[MT][4][4],
-                                          const uint32_t (&a_addr)[MT],
-                                          uint32_t b_addr, int ld,
-                                          int npairs, int ksteps) {
-#ifdef ABLATE_FRAGMENTS
-  return;
-#endif
-  for (int kk = 0; kk < ksteps; ++kk) {
-    uint32_t b[2][4];
-#pragma unroll
-    for (int jp = 0; jp < 2; ++jp) {
-      b[jp][0] = b[jp][1] = b[jp][2] = b[jp][3] = 0u;
-      if (jp < npairs)
-        ldmatrix_x4(b[jp], b_addr + (jp * 16 * ld + kk * 16) * 2);
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      uint32_t a[4];
-      ldmatrix_x4(a, a_addr[i] + kk * 32);
-#pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {
-        if (jp < npairs) {
-          mma_bf16(acc[i][2 * jp], a, b[jp][0], b[jp][1]);
-          mma_bf16(acc[i][2 * jp + 1], a, b[jp][2], b[jp][3]);
-        }
-      }
-    }
-  }
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
-// dst rows [0, nrows) (stride ld) <- channels [k0, k0 + ks) of the pixels
-// row_base .. of a grid `gw` wide whose origin is image pixel (oy, ox);
-// zero for pixels past `npix` or outside the image and for channels past
-// Cin.  Asynchronous (cp.async) where Cin is a multiple of 8.
-__device__ __forceinline__ void load_act(bf16* __restrict__ dst, int ld,
-                                         const bf16* __restrict__ xb, int H,
-                                         int W, int Cin, int row_base,
-                                         int nrows, int npix, int gw, int oy,
-                                         int ox, int k0, int ks) {
-#ifdef ABLATE_X_LOADS
-  return;
-#endif
-  const int upr = ks >> 3;                    // 16-byte units a row
-  const bool vec = (Cin & 7) == 0;
-  for (int u = threadIdx.x; u < nrows * upr; u += kThreads) {
-    const int row = u / upr;
-    const int c8 = (u - row * upr) << 3;
-    const int lp = row_base + row;
-    const int py = oy + lp / gw;
-    const int px = ox + lp % gw;
-    const int k = k0 + c8;
-    const bool in = lp < npix && py >= 0 && py < H && px >= 0 && px < W &&
-                    k < Cin;
-    const bf16* src = in ? xb + ((size_t)py * W + px) * Cin + k : xb;
-    bf16* d = dst + row * ld + c8;
-    if (vec) {
-      cp_async16(d, src, in);
-    } else {
-      const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
-      unsigned short e[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) e[i] = in && k + i < Cin ? s[i] : 0;
-      *reinterpret_cast<uint4*>(d) =
-          make_uint4(e[0] | (uint32_t)e[1] << 16, e[2] | (uint32_t)e[3] << 16,
-                     e[4] | (uint32_t)e[5] << 16, e[6] | (uint32_t)e[7] << 16);
-    }
-  }
+// Position s of the padded sequence -> pixel index b * H * W + y * W + x,
+// or -1 for a pad position or one past the batch.
+__device__ __forceinline__ int pixel_at(int s, int B, int H, int W) {
+  const int Wp = W + 2;
+  if (s < Wp) return -1;
+  const int r = s / Wp - 1;
+  const int xp = s - (r + 1) * Wp;
+  const int b = r / (H + 1);
+  const int y = r - b * (H + 1);
+  if (b >= B || y >= H || xp < 1 || xp > W) return -1;
+  return (b * H + y) * W + xp - 1;
 }
 
-// dst rows [0, nrows) (stride ld) <- w[row][0, ks), row stride ldw.
-__device__ __forceinline__ void load_w(bf16* __restrict__ dst, int ld,
-                                       const bf16* __restrict__ w, int ldw,
-                                       int nrows, int ks) {
-#ifdef ABLATE_W_LOADS
-  return;
-#endif
-  const int upr = ks >> 3;
-  for (int u = threadIdx.x; u < nrows * upr; u += kThreads) {
-    const int row = u / upr;
-    const int c8 = (u - row * upr) << 3;
-    cp_async16(dst + row * ld + c8, w + (size_t)row * ldw + c8, true);
-  }
+// Keep registers in place across an asynchronous wgmma: the compiler may
+// neither move nor reuse them before the wait that follows.
+__device__ __forceinline__ void pin(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
 }
 
-// R rounds of (load a slice, multiply it) through a ring of S buffers:
-// rounds r + 1 .. r + S - 1 are in flight while round r is multiplied, and
-// a round costs one barrier.  fetch(r, buf) starts the loads of round r
-// into buffer buf; compute(r, buf) consumes them.  The barrier of round r
-// also says that every warp has finished round r - 1, whose buffer is the
-// one refilled next.
-template <int S, class Fetch, class Compute>
-__device__ __forceinline__ void pipeline(int R, Fetch fetch, Compute compute) {
-#pragma unroll
-  for (int s = 0; s < S - 1; ++s) {
-    if (s < R) fetch(s, s);
-    cp_async_commit();
-  }
-  for (int r = 0; r < R; ++r) {
-    cp_async_wait<S - 2>();        // round r has landed
-    __syncthreads();
-    const int nxt = r + S - 1;
-    if (nxt < R) fetch(nxt, nxt % S);
-    cp_async_commit();
-    compute(r, r % S);
-  }
-  __syncthreads();                 // the ring may be refilled
-}
-
-template <int MT>
-__device__ __forceinline__ void zero(float (&acc)[MT][4][4]) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-}
-
-template <int kKS, int kS>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, 1)
 bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
                   const bf16* __restrict__ w1, const float* __restrict__ b1,
                   const bf16* __restrict__ w2, const float* __restrict__ b2,
                   const bf16* __restrict__ w3, const float* __restrict__ b3,
                   const bf16* __restrict__ wd, const float* __restrict__ bd,
-                  int H, int W, int Cin, int Cmid_p, int Cout, int tiles_x) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int Cin_p = round16(Cin);
-  const int Cout_p = round16(Cout);
-  const int ldh = Cmid_p + 8;
+                  int B, int H, int W, int Cin, int Cmid_p, int Cout) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const bool down = wd != nullptr;
-  constexpr int kLD = kKS + 8;               // row stride of a slice buffer
-  constexpr int kWBuf = kNC * kLD;           // one weight slice buffer
-  bf16* sH1 = reinterpret_cast<bf16*>(smem_raw);   // [192][ldh]
-  bf16* sW = sH1 + kHaloRows * ldh;                // kS x [128][kLD]
-  bf16* sH2 = sW + kS * kWBuf;                     // [128][ldh]
-  bf16* sA = down ? sH2 + kTilePix * ldh : sH2;    // kS x [128 or 96][kLD]
-  const int abuf = (down ? kTilePix : kPassRows) * kLD;
+  const Layout L = layout(W, Cmid_p, down);
+  const int Wp = W + 2;
+  const int Cin_p = round64(Cin), Cout_p = round64(Cout);
+  const int ks_in = Cin_p / 64, ks_mid = Cmid_p / 64;
+  const int passes = (L.h1_rows + kM - 1) / kM;
+  const int nchunks = (Cout_p + 127) / 128;
+  const int s0 = Wp + blockIdx.x * kM;          // band row 0
+  const int h0 = s0 - Wp - 1;                   // h1 row 0 (tap 0, 0)
+  const uint32_t wring = smem_u32(base), xring = wring + L.x_off;
+  const uint32_t sH1 = wring + L.h1_off, sH2 = wring + L.h2_off;
+  bf16* pH1 = reinterpret_cast<bf16*>(base + L.h1_off);
+  bf16* pH2 = reinterpret_cast<bf16*>(base + L.h2_off);
+  const uint32_t bars = wring + L.bar_off;
+  const int sw = L.sw;
+  auto full_w = [&](int i) { return bars + 8 * i; };
+  auto empty_w = [&](int i) { return bars + 8 * (kSWMax + i); };
+  auto full_x = [&](int i) { return bars + 8 * (2 * kSWMax + i); };
+  auto empty_x = [&](int i) { return bars + 8 * (2 * kSWMax + kSX + i); };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < sw; ++i) {
+      mbar_init(full_w(i), 1);                   // the expect_tx arrival
+      mbar_init(empty_w(i), kConsumers / 32);    // every consumer warp
+    }
+    for (int i = 0; i < kSX; ++i) {
+      mbar_init(full_x(i), 128);                 // every producer thread
+      mbar_init(empty_x(i), kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;                   // row of the fragment
-  const int t = lane & 3;                    // column pair of the fragment
-  const int wm = warp >> 2;                  // 0..1 along pixels
-  const int wn = warp & 3;                   // 0..3 along channels
-  const int lrow = lane & 15;                // ldmatrix: row this lane names
-  const int lcol = (lane >> 4) * 8;          //           and its column
-  const int y0 = (blockIdx.x / tiles_x) * kTH;
-  const int x0 = (blockIdx.x % tiles_x) * kTW;
-  const size_t img = (size_t)blockIdx.y * H * W;
-  const bf16* xb = x + img * Cin;
-  const int nk_in = (Cin_p + kKS - 1) / kKS;
-  const int nk_mid = (Cmid_p + kKS - 1) / kKS;
-  const uint32_t sW_u = smem_u32(sW), sA_u = smem_u32(sA);
-  const uint32_t sH1_u = smem_u32(sH1), sH2_u = smem_u32(sH2);
-
-  // A chunk of up to 128 output channels is split over the four warps
-  // along channels in widths of 16 (chunk <= 64) or 32: -> first column,
-  // number of column-tile pairs, and the lane's ldmatrix offset (bytes)
-  // into a weight slice buffer.
-  int wcol0, npairs;
-  uint32_t wofs;
-  auto split = [&](int chunk) {
-    const int wcols = chunk <= 64 ? 16 : 32;
-    wcol0 = wn * wcols;
-    npairs = max(0, min(wcols, chunk - wcol0)) >> 4;
-    wofs = ((wcol0 + (lane & 7) + (lane >> 4) * 8) * kLD +
-            ((lane >> 3) & 1) * 8) * 2;
-  };
-
-#ifndef ABLATE_CONV1
-  // ---- conv1 on the halo tile: h1 = bf16(relu(w1 . x + b1)), 0 outside
-  for (int n0 = 0; n0 < Cmid_p; n0 += kNC) {
-    const int nrows = min(kNC, Cmid_p - n0);
-    split(nrows);
-    for (int pass = 0; pass < 2; ++pass) {
-      float acc[3][4][4];
-      zero<3>(acc);
-      pipeline<kS>(
-          nk_in,
-          [&](int r, int buf) {
-            const int k0 = r * kKS;
-            const int ks = min(kKS, Cin_p - k0);
-            load_act(sA + buf * abuf, kLD, xb, H, W, Cin, pass * kPassRows,
-                     kPassRows, kHaloPix, kHW, y0 - 1, x0 - 1, k0, ks);
-            load_w(sW + buf * kWBuf, kLD, w1 + (size_t)n0 * Cin_p + k0, Cin_p,
-                   nrows, ks);
-          },
-          [&](int r, int buf) {
-            uint32_t a_addr[3];
+  if (threadIdx.x < 128) {
+    // ================= producer: copies in the order the consumers take
+    // them: conv1 over the band and its halo in passes of kM rows (K slices
+    // of Cin_p), conv2 over the 9 taps (K slices of Cmid_p), conv3 (+ the
+    // downsample) per chunk of up to 128 output channels.  Thread 0 starts
+    // the weights' bulk copies; the 128 threads the x slices, two rows each.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    const int pt = threadIdx.x;
+    int ws = 0, wph = 0, xs = 0, xph = 0;
+    auto put_w = [&](const bf16* src, int rows) {
+      if (pt == 0) {
+        mbar_wait(empty_w(ws), wph ^ 1);
+#ifdef ABLATE_W_LOADS
+        mbar_arrive(full_w(ws));
+#else
+        mbar_expect_tx(full_w(ws), rows * 128);
+        bulk_copy(wring + ws * kWBytes, src, rows * 128, full_w(ws));
+#endif
+      }
+      if (++ws == sw) { ws = 0; wph ^= 1; }
+    };
+    // rows [0, nrows) of an x slice <- channels [64 ks, 64 ks + 64) of the
+    // pixels at positions s_first.., zero outside the image and past Cin;
+    // 128-byte rows, chunk c of row r at chunk c ^ (r & 7)
+    auto put_x = [&](int s_first, int nrows, int ks) {
+      mbar_wait(empty_x(xs), xph ^ 1);
+#ifndef ABLATE_X_LOADS
+      const uint32_t buf = xring + xs * kXBytes;
+      for (int r = pt; r < kM; r += 128) {
+        const int pix = r < nrows ? pixel_at(s_first + r, B, H, W) : -1;
+        const bf16* row = x + (size_t)(pix < 0 ? 0 : pix) * Cin;
 #pragma unroll
-            for (int i = 0; i < 3; ++i)
-              a_addr[i] = sA_u + (buf * abuf +
-                                  ((wm * 3 + i) * 16 + lrow) * kLD + lcol) * 2;
-            mma_slice<3>(acc, a_addr, sW_u + buf * kWBuf * 2 + wofs, kLD,
-                         npairs, min(kKS, Cin_p - r * kKS) >> 4);
-          });
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int hp = pass * kPassRows + (wm * 3 + i) * 16 + g + half * 8;
-          const int py = y0 - 1 + hp / kHW;
-          const int px = x0 - 1 + hp % kHW;
-          const bool inside = hp < kHaloPix && py >= 0 && py < H && px >= 0 &&
-                              px < W;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (j < 2 * npairs) {
-              const int n = n0 + wcol0 + j * 8 + t * 2;
-              float v0 = 0.0f, v1 = 0.0f;
-              if (inside) {
-                v0 = fmaxf(acc[i][j][half * 2] + b1[n], 0.0f);
-                v1 = fmaxf(acc[i][j][half * 2 + 1] + b1[n + 1], 0.0f);
-              }
-              *reinterpret_cast<__nv_bfloat162*>(sH1 + hp * ldh + n) =
-                  __floats2bfloat162_rn(v0, v1);
-            }
-          }
+        for (int c = 0; c < 8; ++c) {
+          const int k = ks * 64 + c * 8;
+          const bool in = pix >= 0 && k < Cin;
+          cp_async16(buf + r * 128 + ((c ^ (r & 7)) << 4), in ? row + k : x,
+                     in);
         }
       }
-    }
-  }
-
+#endif
+      cp_async_arrive(full_x(xs));
+      if (++xs == kSX) { xs = 0; xph ^= 1; }
+    };
+#ifndef ABLATE_CONV1
+    for (int p = 0; p < passes; ++p)
+      for (int ks = 0; ks < ks_in; ++ks) {
+        put_w(w1 + (size_t)ks * Cmid_p * 64, Cmid_p);
+        put_x(h0 + p * kM, L.h1_rows - p * kM, ks);
+      }
 #endif
 #ifndef ABLATE_CONV2
-  // ---- conv2, 3x3 over h1 in shared memory: h2 = bf16(relu(. + b2))
-  for (int n0 = 0; n0 < Cmid_p; n0 += kNC) {
-    const int nrows = min(kNC, Cmid_p - n0);
-    split(nrows);
-    float acc[4][4][4];
-    zero<4>(acc);
-    pipeline<kS>(
-        9 * nk_mid,
-        [&](int r, int buf) {
-          const int tap = r / nk_mid;
-          const int k0 = (r - tap * nk_mid) * kKS;
-          load_w(sW + buf * kWBuf, kLD,
-                 w2 + ((size_t)tap * Cmid_p + n0) * Cmid_p + k0, Cmid_p, nrows,
-                 min(kKS, Cmid_p - k0));
-        },
-        [&](int r, int buf) {     // the first round's barrier completes h1
-          const int tap = r / nk_mid;
-          const int k0 = (r - tap * nk_mid) * kKS;
-          const int dy = tap / 3;
-          const int dx = tap - dy * 3;
-          uint32_t a_addr[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            a_addr[i] = sH1_u + (((wm * 4 + i + dy) * kHW + dx + lrow) * ldh +
-                                 k0 + lcol) * 2;
-          mma_slice<4>(acc, a_addr, sW_u + buf * kWBuf * 2 + wofs, kLD,
-                       npairs, min(kKS, Cmid_p - k0) >> 4);
-        });
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int p = (wm * 4 + i) * 16 + g + half * 8;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (j < 2 * npairs) {
-            const int n = n0 + wcol0 + j * 8 + t * 2;
-            const float v0 = fmaxf(acc[i][j][half * 2] + b2[n], 0.0f);
-            const float v1 = fmaxf(acc[i][j][half * 2 + 1] + b2[n + 1], 0.0f);
-            *reinterpret_cast<__nv_bfloat162*>(sH2 + p * ldh + n) =
-                __floats2bfloat162_rn(v0, v1);
-          }
-        }
-      }
-    }
-  }
-
+    for (int tap = 0; tap < 9; ++tap)
+      for (int ks = 0; ks < ks_mid; ++ks)
+        put_w(w2 + (size_t)(tap * ks_mid + ks) * Cmid_p * 64, Cmid_p);
 #endif
 #ifndef ABLATE_CONV3
-  // ---- conv3 (+ downsample) + residual: y = bf16(relu(. + b3 + res))
-  for (int n0 = 0; n0 < Cout_p; n0 += kNC) {
-    const int nrows = min(kNC, Cout_p - n0);
-    split(nrows);
-    float acc[4][4][4];
-    zero<4>(acc);
-    pipeline<kS>(
-        nk_mid + (down ? nk_in : 0),
-        [&](int r, int buf) {
-          if (r < nk_mid) {
-            const int k0 = r * kKS;
-            load_w(sW + buf * kWBuf, kLD, w3 + (size_t)n0 * Cmid_p + k0, Cmid_p,
-                   nrows, min(kKS, Cmid_p - k0));
-          } else {
-            const int k0 = (r - nk_mid) * kKS;
-            const int ks = min(kKS, Cin_p - k0);
-            load_act(sA + buf * abuf, kLD, xb, H, W, Cin, 0, kTilePix, kTilePix,
-                     kTW, y0, x0, k0, ks);
-            load_w(sW + buf * kWBuf, kLD, wd + (size_t)n0 * Cin_p + k0, Cin_p,
-                   nrows, ks);
-          }
-        },
-        [&](int r, int buf) {     // the first round's barrier completes h2
-          uint32_t a_addr[4];
-          int ks;
-          if (r < nk_mid) {
-            const int k0 = r * kKS;
-            ks = min(kKS, Cmid_p - k0);
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              a_addr[i] = sH2_u + (((wm * 4 + i) * 16 + lrow) * ldh + k0 +
-                                   lcol) * 2;
-          } else {
-            ks = min(kKS, Cin_p - (r - nk_mid) * kKS);
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              a_addr[i] = sA_u + (buf * abuf +
-                                  ((wm * 4 + i) * 16 + lrow) * kLD + lcol) * 2;
-          }
-          mma_slice<4>(acc, a_addr, sW_u + buf * kWBuf * 2 + wofs, kLD,
-                       npairs, ks >> 4);
-        });
-    // The epilogue goes through shared memory (h1 and the weight ring are
-    // dead here), so that the residual is read and y is written in
-    // 16-byte pieces, a pixel's channels side by side: the residual tile
-    // comes in, every thread adds its accumulators in f32 and rounds in
-    // place, the tile goes out.
-    bf16* sOut = sH1;                          // [128][kNC + 8]
-#ifdef ABLATE_EPILOGUE
-    if (acc[0][0][0] != 12345.0f) continue;    // keeps the products alive
-#endif
-    constexpr int ldo = kNC + 8;
-    const int upr = nrows >> 3;                // 16-byte units a pixel
-    if (!down) {
-      const bool vec = (Cin & 7) == 0;
-      for (int u = threadIdx.x; u < kTilePix * upr; u += kThreads) {
-        const int p = u / upr;
-        const int c8 = (u - p * upr) << 3;
-        const int oy = y0 + (p >> 4);
-        const int ox = x0 + (p & 15);
-        const int n = n0 + c8;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (oy < H && ox < W && n < Cin) {      // Cin == Cout here
-          const bf16* src = xb + ((size_t)oy * W + ox) * Cin + n;
-          if (vec) {
-            v = *reinterpret_cast<const uint4*>(src);
-          } else {
-            const unsigned short* q =
-                reinterpret_cast<const unsigned short*>(src);
-            unsigned short e[8];
-#pragma unroll
-            for (int k = 0; k < 8; ++k) e[k] = n + k < Cin ? q[k] : 0;
-            v = make_uint4(e[0] | (uint32_t)e[1] << 16,
-                           e[2] | (uint32_t)e[3] << 16,
-                           e[4] | (uint32_t)e[5] << 16,
-                           e[6] | (uint32_t)e[7] << 16);
-          }
+    for (int nc = 0; nc < nchunks; ++nc) {
+      const int rows = min(128, Cout_p - nc * 128);
+      for (int ks = 0; ks < ks_mid; ++ks)
+        put_w(w3 + ((size_t)nc * ks_mid * 128 + ks * rows) * 64, rows);
+      if (down)
+        for (int ks = 0; ks < ks_in; ++ks) {
+          put_w(wd + ((size_t)nc * ks_in * 128 + ks * rows) * 64, rows);
+          put_x(s0, kM, ks);
         }
-        *reinterpret_cast<uint4*>(sOut + p * ldo + c8) = v;
+    }
+#endif
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  // =================== consumers: warpgroup c owns band rows 128 c ..
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+  const int c = (threadIdx.x >> 7) - 1;
+  const int wq = (threadIdx.x >> 5) & 3;        // warp in the warpgroup
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lrow = lane & 15;                   // ldmatrix: row this lane
+  const int lchunk = lane >> 4;                 // names, 16-byte chunk
+  const int r0 = c * 128 + wq * 16;             // + i * 64: this warp's rows
+  const int ldh = L.ldh;
+  int ws = 0, wph = 0, xs = 0, xph = 0;
+  float acc[2][2][32];
+  // pixel of each band row (-1: pad or past the batch), read by the last
+  // epilogue; complete at the consumer barrier after conv1
+  int* rowpix = reinterpret_cast<int*>(base + L.pix_off);
+  rowpix[threadIdx.x - 128] = pixel_at(s0 + threadIdx.x - 128, B, H, W);
+  const int ct = threadIdx.x & 127;             // thread in the warpgroup
+
+  auto zero = [&]() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[i][n][e] = 0.0f;
+  };
+  auto pin_acc = [&]() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) pin(acc[i][n][e]);
+  };
+  // One round: wait for the weight slice and multiply it into the row
+  // tiles of TILES (bit i: accumulators acc[i]), NT 64-channel column
+  // tiles, A from a_addr(i, kk) (this lane's ldmatrix address for tile i
+  // at k step kk).  One
+  // wgmma group a k step; the A fragments of step kk + 1 are loaded while
+  // step kk multiplies (two register buffers; a buffer is refilled once
+  // the group that read it is done).  Then the slice is released.
+  auto mma_round = [&](auto a_addr, auto tiles_c, auto nt_c) {
+    constexpr int kTiles = decltype(tiles_c)::value;
+    constexpr int kNT = decltype(nt_c)::value;
+    mbar_wait(full_w(ws), wph);
+    const uint32_t wb = wring + ws * kWBytes;
+    uint32_t a[2][2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (kTiles >> i & 1) ldmatrix_x4(a[0][i], a_addr(i, 0));
+    pin_acc();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int n = 0; n < kNT; ++n)
+          if (kTiles >> i & 1)
+            wgmma_64x64(acc[i][n], a[kk & 1][i],
+                        desc_b(wb + n * 8192 + kk * 32));
+      wgmma_commit();
+      if (kk < 3) {
+        wgmma_wait<1>();                // step kk - 1 is done with its A
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) pin(a[(kk + 1) & 1][i][q]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if (kTiles >> i & 1) ldmatrix_x4(a[(kk + 1) & 1][i], a_addr(i, kk + 1));
       }
-      __syncthreads();
+    }
+    wgmma_wait<0>();
+    pin_acc();
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) pin(a[b][i][q]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_w(ws));
+    if (++ws == sw) { ws = 0; wph ^= 1; }
+  };
+  auto take_x = [&]() {
+    mbar_wait(full_x(xs), xph);
+    return xring + xs * kXBytes;
+  };
+  auto release_x = [&]() {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_x(xs));
+    if (++xs == kSX) { xs = 0; xph ^= 1; }
+  };
+  // ldmatrix address into a swizzled x slice / a plain h1 or h2 row
+  auto x_addr = [&](uint32_t buf, int r, int kk) {
+    return buf + r * 128 + (((kk * 2 + lchunk) ^ (r & 7)) << 4);
+  };
+  auto h_addr = [&](uint32_t h, int r, int col) {
+    return h + (r * ldh + col) * 2;
+  };
+
+  // ---- conv1 on the band and its halo: h1 = bf16(relu(w1 . x + b1)), 0
+  // at positions outside the image.  A pass covers up to 4 row tiles of
+  // 64; tile j goes to warpgroup j % 2, so that a short last pass is
+  // shared by both.
+  const int c1 = c * 64 + wq * 16;              // + 128 i: this warp's rows
+  auto conv1 = [&](auto nt_c) {
+    constexpr int kNT = decltype(nt_c)::value;
+    for (int p = 0; p < passes; ++p) {
+      int tiles = 0;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (p * kM + c * 64 + i * 128 < L.h1_rows) tiles |= 1 << i;
+      zero();
+      for (int ks = 0; ks < ks_in; ++ks) {
+        const uint32_t xb = take_x();
+        auto addr = [&](int i, int kk) {
+          return x_addr(xb, c1 + i * 128 + lrow, kk);
+        };
+        if (tiles == 3) mma_round(addr, Int<3>{}, nt_c);
+        else if (tiles == 1) mma_round(addr, Int<1>{}, nt_c);
+        else mma_round(addr, Int<0>{}, nt_c);   // keeps the ring turning
+        release_x();
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (!(tiles >> i & 1)) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int hl = p * kM + c1 + i * 128 + g + 8 * h;
+          const bool inside = pixel_at(h0 + hl, B, H, W) >= 0;
+#pragma unroll
+          for (int n = 0; n < kNT; ++n)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int ch = n * 64 + j * 8 + 2 * t;
+              float v0 = 0.0f, v1 = 0.0f;
+              if (inside) {
+                v0 = fmaxf(acc[i][n][j * 4 + 2 * h] + b1[ch], 0.0f);
+                v1 = fmaxf(acc[i][n][j * 4 + 2 * h + 1] + b1[ch + 1], 0.0f);
+              }
+              *reinterpret_cast<__nv_bfloat162*>(pH1 + hl * ldh + ch) =
+                  __floats2bfloat162_rn(v0, v1);
+            }
+        }
+      }
+    }
+  };
+
+  // ---- conv2, 3x3 over h1: tap (dy, dx) is row offset dy * Wp + dx;
+  // h2 = bf16(relu(. + b2))
+  auto conv2 = [&](auto nt_c) {
+    constexpr int kNT = decltype(nt_c)::value;
+    zero();
+    for (int tap = 0; tap < 9; ++tap) {
+      const int off = (tap / 3) * Wp + tap % 3;
+      for (int ks = 0; ks < ks_mid; ++ks)
+        mma_round([&](int i, int kk) {
+                    return h_addr(sH1, r0 + i * 64 + lrow + off,
+                                  ks * 64 + kk * 16 + lchunk * 8);
+                  },
+                  Int<3>{}, nt_c);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int p = (wm * 4 + i) * 16 + g + half * 8;
+      for (int h = 0; h < 2; ++h) {
+        const int m = r0 + i * 64 + g + 8 * h;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (j < 2 * npairs) {
-            const int c = wcol0 + j * 8 + t * 2;
+        for (int n = 0; n < kNT; ++n)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int ch = n * 64 + j * 8 + 2 * t;
+            const float v0 = fmaxf(acc[i][n][j * 4 + 2 * h] + b2[ch], 0.0f);
+            const float v1 = fmaxf(acc[i][n][j * 4 + 2 * h + 1] + b2[ch + 1],
+                                   0.0f);
+            *reinterpret_cast<__nv_bfloat162*>(pH2 + m * ldh + ch) =
+                __floats2bfloat162_rn(v0, v1);
+          }
+      }
+  };
+
+  // ---- conv3 (+ downsample) + residual for the output channels of chunk
+  // nc: y = bf16(relu(. + b3 + res)).  The epilogue goes through shared
+  // memory (h1 is dead by then), 64 channels at a time, each warpgroup
+  // over its own 128 rows: the residual tile comes in (cp.async; the first
+  // one while the chunk's products run), every thread adds its sums in f32
+  // and rounds in place, the tile goes out; residual and y move in 16-byte
+  // pieces, a pixel's 64 channels side by side.
+  constexpr int kLdo = 72;                      // staging row, bf16
+  bf16* stage = pH1 + c * 128 * kLdo;
+  auto wg_sync = [&]() {
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory");
+  };
+  auto fetch_residual = [&](int ch0) {        // identity blocks: Cin == Cout
+    for (int u = ct; u < 128 * 8; u += 128) {
+      const int row = u >> 3, c8 = (u & 7) * 8;
+      const int px = rowpix[c * 128 + row];
+      const bool in = px >= 0 && ch0 + c8 < Cout;
+      cp_async16(smem_u32(stage + row * kLdo + c8),
+                 in ? x + (size_t)px * Cin + ch0 + c8 : x, in);
+    }
+    cp_async_commit();
+  };
+  auto conv3 = [&](int nc, auto nt_c) {
+    constexpr int kNT = decltype(nt_c)::value;
+#ifndef ABLATE_EPILOGUE
+    if (!down) fetch_residual(nc * 128);
+#endif
+    zero();
+    for (int ks = 0; ks < ks_mid; ++ks)
+      mma_round([&](int i, int kk) {
+                  return h_addr(sH2, r0 + i * 64 + lrow,
+                                ks * 64 + kk * 16 + lchunk * 8);
+                },
+                Int<3>{}, nt_c);
+    if (down)
+      for (int ks = 0; ks < ks_in; ++ks) {
+        const uint32_t xb = take_x();
+        mma_round([&](int i, int kk) {
+                    return x_addr(xb, r0 + i * 64 + lrow, kk);
+                  },
+                  Int<3>{}, nt_c);
+        release_x();
+      }
+#ifdef ABLATE_EPILOGUE
+    if (acc[0][0][0] != 12345.0f) return;       // keeps the products alive
+#endif
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      const int ch0 = nc * 128 + n * 64;
+      if (!down) {
+        if (n > 0) fetch_residual(ch0);
+        cp_async_wait_all();
+        wg_sync();
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = i * 64 + wq * 16 + g + 8 * h;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = j * 8 + 2 * t;
             __nv_bfloat162* cell =
-                reinterpret_cast<__nv_bfloat162*>(sOut + p * ldo + c);
-            float v0 = acc[i][j][half * 2] + b3[n0 + c];
-            float v1 = acc[i][j][half * 2 + 1] + b3[n0 + c + 1];
+                reinterpret_cast<__nv_bfloat162*>(stage + row * kLdo + col);
+            float v0 = acc[i][n][j * 4 + 2 * h] + b3[ch0 + col];
+            float v1 = acc[i][n][j * 4 + 2 * h + 1] + b3[ch0 + col + 1];
             if (down) {
-              v0 += bd[n0 + c];
-              v1 += bd[n0 + c + 1];
+              v0 += bd[ch0 + col];
+              v1 += bd[ch0 + col + 1];
             } else {
               const float2 r = __bfloat1622float2(*cell);
               v0 += r.x;
@@ -552,104 +682,70 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
             *cell = __floats2bfloat162_rn(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
           }
         }
+      wg_sync();
+      for (int u = ct; u < 128 * 8; u += 128) {
+        const int row = u >> 3, c8 = (u & 7) * 8;
+        const int px = rowpix[c * 128 + row];
+        if (px >= 0 && ch0 + c8 < Cout)
+          *reinterpret_cast<uint4*>(y + (size_t)px * Cout + ch0 + c8) =
+              *reinterpret_cast<const uint4*>(stage + row * kLdo + c8);
       }
+      wg_sync();                                // the tile may be refilled
     }
-    __syncthreads();
-    {
-      const bool vec = (Cout & 7) == 0;
-      for (int u = threadIdx.x; u < kTilePix * upr; u += kThreads) {
-        const int p = u / upr;
-        const int c8 = (u - p * upr) << 3;
-        const int oy = y0 + (p >> 4);
-        const int ox = x0 + (p & 15);
-        const int n = n0 + c8;
-        if (oy >= H || ox >= W || n >= Cout) continue;
-        bf16* dst = y + (img + (size_t)oy * W + ox) * Cout + n;
-        const bf16* src = sOut + p * ldo + c8;
-        if (vec) {
-          *reinterpret_cast<uint4*>(dst) =
-              *reinterpret_cast<const uint4*>(src);
-        } else {
-#pragma unroll
-          for (int k = 0; k < 8; ++k)
-            if (n + k < Cout) dst[k] = src[k];
-        }
-      }
-    }
-    __syncthreads();                 // sOut gives way to the next ring
+  };
+
+  const bool wide = Cmid_p == 128;
+#ifndef ABLATE_CONV1
+  if (wide) conv1(Int<2>{}); else conv1(Int<1>{});
+#endif
+  consumer_sync();                              // h1 complete
+#ifndef ABLATE_CONV2
+  if (wide) conv2(Int<2>{}); else conv2(Int<1>{});
+#endif
+  consumer_sync();                              // h2 complete
+#ifndef ABLATE_CONV3
+  for (int nc = 0; nc < nchunks; ++nc) {
+    if (Cout_p - nc * 128 >= 128) conv3(nc, Int<2>{}); else conv3(nc, Int<1>{});
   }
 #endif
 }
 
 }  // namespace
 
-// The kernel's builds, (K slice, ring depth), in order of preference: the
-// first whose shared memory leaves room for a second block on the SM is
-// taken, else the smallest.
-struct Build {
-  int ks, stages;
-  void (*kernel)(const bf16*, bf16*, const bf16*, const float*, const bf16*,
-                 const float*, const bf16*, const float*, const bf16*,
-                 const float*, int, int, int, int, int, int);
-};
-static const Build kBuilds[] = {
-#ifdef ABLATE_KS   // the one build asked for, whatever room it leaves
-    {ABLATE_KS, ABLATE_S, bottleneck_kernel<ABLATE_KS, ABLATE_S>},
-#else
-    {64, 2, bottleneck_kernel<64, 2>},
-    {32, 2, bottleneck_kernel<32, 2>},
-#endif
-};
-
-static const Build* pick(int cmid_p, bool down, int* bytes) {
-  const Build* best = nullptr;
-  for (const Build& b : kBuilds) {
-    const int need =
-        smem_elems(cmid_p, down, b.ks, b.stages) * (int)sizeof(bf16);
-    if (need <= kHalfSmem) {
-      *bytes = need;
-      return &b;
-    }
-    if (best == nullptr || need < *bytes) {
-      best = &b;
-      *bytes = need;
-    }
-  }
-  return best;
+// Bytes of dynamic shared memory a block needs at these widths, or -1 where
+// the kernel does not take them (C_mid above 128); the wrapper refuses
+// widths that need more than a block can have (232,448).
+extern "C" int tpubody_fused_stage_smem_bytes(int W, int Cmid, int has_down) {
+  const int cmid_p = round64(Cmid);
+  if (cmid_p > 128) return -1;
+  return layout(W, cmid_p, has_down != 0).bytes;
 }
 
-// Bytes of dynamic shared memory a block needs at these widths; the
-// wrapper refuses widths that need more than a block can have (232,448).
-extern "C" int tpubody_fused_stage_smem_bytes(int Cmid, int has_down) {
-  int bytes = 0;
-  pick(round16(Cmid), has_down != 0, &bytes);
-  return bytes;
-}
-
-// One bottleneck: launches the kernel on `stream` over grid (tiles, images)
-// and returns cudaGetLastError().  Weights and biases are padded to
-// multiples of 16 as described above (Cmid is the unpadded width); wd and
-// bd are null for an identity residual.
+// One bottleneck: launches the kernel on `stream` over one block per band
+// of kM positions of the padded sequence and returns cudaGetLastError().
+// Weights and biases are packed as described above (Cmid is the unpadded
+// width); wd and bd are null for an identity residual.
 extern "C" int tpubody_fused_stage_block(
     const void* x, void* y, const void* w1, const float* b1, const void* w2,
     const float* b2, const void* w3, const float* b3, const void* wd,
     const float* bd, int B, int H, int W, int Cin, int Cmid, int Cout,
     cudaStream_t stream) {
   if (B <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
-  const int cmid_p = round16(Cmid);
-  int bytes = 0;
-  const Build* build = pick(cmid_p, wd != nullptr, &bytes);
-  if (bytes > kMaxSmem || B > 65535) return (int)cudaErrorInvalidValue;
+  const int cmid_p = round64(Cmid);
+  const long long positions = (long long)B * (H + 1) * (W + 2);
+  if (cmid_p > 128 || Cin % 8 || Cout % 8 || positions > (1LL << 30))
+    return (int)cudaErrorInvalidValue;
+  const Layout L = layout(W, cmid_p, wd != nullptr);
+  if (L.bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      build->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      bottleneck_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L.bytes);
   if (err != cudaSuccess) return (int)err;
-  const int tiles_x = (W + kTW - 1) / kTW;
-  const int tiles_y = (H + kTH - 1) / kTH;
-  const dim3 grid(tiles_x * tiles_y, B);
-  build->kernel<<<grid, kThreads, bytes, stream>>>(
+  const int blocks = (int)((positions + kM - 1) / kM);
+  bottleneck_kernel<<<blocks, kThreads, L.bytes, stream>>>(
       static_cast<const bf16*>(x), static_cast<bf16*>(y),
       static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2,
-      static_cast<const bf16*>(w3), b3, static_cast<const bf16*>(wd), bd, H,
-      W, Cin, cmid_p, Cout, tiles_x);
+      static_cast<const bf16*>(w3), b3, static_cast<const bf16*>(wd), bd, B,
+      H, W, Cin, cmid_p, Cout);
   return (int)cudaGetLastError();
 }

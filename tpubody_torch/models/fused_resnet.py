@@ -13,9 +13,11 @@ measured beside the library's convolutions (``tpubody_torch.bench
 tensor it launches the kernel or raises; on a CPU tensor it takes
 :func:`run_stage_reference`, the plain PyTorch version with the same
 roundings.  The kernel needs no even ``C_mid`` (that rule came with the
-TPU's packed rolls and is dropped): any widths run, because
-:func:`fuse_stage` pads the *weights* with zeros to multiples of 16 once,
-and the kernel masks the activations' ragged channels itself.
+TPU's packed rolls and is dropped): :func:`fuse_stage` pads the *weights*
+with zeros to multiples of 64 once, in the swizzled tiles the kernel's
+bulk copies land, and the kernel masks the activations' ragged channels
+itself.  On the card it takes C_mid up to 128 and C_in, C_out that are
+multiples of 8 (every ResNet-50 stride-1 block of stages 1 and 2).
 """
 from __future__ import annotations
 
@@ -36,8 +38,8 @@ FIELDS = ("A1_0", "b1_0", "A2_0", "b2_0", "A3_0", "b3_0", "Ad", "bd",
           "A1_r", "b1_r", "A2_r", "b2_r", "A3_r", "b3_r")
 
 
-def _round16(c: int) -> int:
-    return (c + 15) // 16 * 16
+def _round64(c: int) -> int:
+    return (c + 63) // 64 * 64
 
 
 def _pad(x: torch.Tensor, shape) -> torch.Tensor:
@@ -46,23 +48,45 @@ def _pad(x: torch.Tensor, shape) -> torch.Tensor:
     return out.contiguous()
 
 
+def swizzle_tiles(mat: torch.Tensor) -> torch.Tensor:
+    """(N, K) bf16, N and K multiples of 64 -> the kernel's B tiles, flat:
+    for each chunk of up to 128 rows, for each K slice of 64, the (rows, 64)
+    tile with 128-byte rows and the 16-byte chunk c of row n stored at
+    chunk c ^ (n % 8) (the 128-byte swizzle of a wgmma descriptor)."""
+    N, K = mat.shape
+    out = []
+    for n0 in range(0, N, 128):
+        sub = mat[n0:n0 + 128]
+        R = sub.shape[0]
+        t = sub.reshape(R, K // 64, 8, 8).permute(1, 0, 2, 3)
+        src = (torch.arange(8)[None, :] ^ (torch.arange(R)[:, None] % 8))
+        idx = src.to(mat.device)[None, :, :, None].expand(K // 64, R, 8, 8)
+        out.append(torch.gather(t, 2, idx).reshape(-1))
+    return torch.cat(out)
+
+
 def _pack_block(A1, b1, A2, b2, A3, b3, Ad, bd) -> Dict[str, object]:
     """One bottleneck's matrices in the kernel's layout: every channel
-    count rounded up to a multiple of 16 with zeros, the 3x3 weights
-    tap-major as (9, C_mid, C_mid)."""
+    count rounded up to a multiple of 64 with zeros, then cut into the
+    swizzled (rows, 64) tiles one bulk copy lands (:func:`swizzle_tiles`):
+    w1 (C_mid, C_in), w2 tap by tap (tap-major, each (C_mid, C_mid)), w3
+    and wd (C_out, .) in chunks of 128 output channels."""
     c_mid, c_in = A1.shape
     c_out = A3.shape[0]
-    pm, pi, po = _round16(c_mid), _round16(c_in), _round16(c_out)
-    w2 = A2.reshape(c_mid, 9, c_mid).permute(1, 0, 2)
+    pm, pi, po = _round64(c_mid), _round64(c_in), _round64(c_out)
+    w2 = _pad(A2.reshape(c_mid, 9, c_mid).permute(1, 0, 2), (9, pm, pm))
     packed = {
         "c_in": c_in, "c_mid": c_mid, "c_out": c_out,
-        "w1": _pad(A1, (pm, pi)), "b1": _pad(b1.reshape(-1), (pm,)),
-        "w2": _pad(w2, (9, pm, pm)), "b2": _pad(b2.reshape(-1), (pm,)),
-        "w3": _pad(A3, (po, pm)), "b3": _pad(b3.reshape(-1), (po,)),
+        "w1": swizzle_tiles(_pad(A1, (pm, pi))),
+        "b1": _pad(b1.reshape(-1), (pm,)),
+        "w2": torch.cat([swizzle_tiles(w2[tap]) for tap in range(9)]),
+        "b2": _pad(b2.reshape(-1), (pm,)),
+        "w3": swizzle_tiles(_pad(A3, (po, pm))),
+        "b3": _pad(b3.reshape(-1), (po,)),
         "wd": None, "bd": None,
     }
     if Ad is not None:
-        packed["wd"] = _pad(Ad, (po, pi))
+        packed["wd"] = swizzle_tiles(_pad(Ad, (po, pi)))
         packed["bd"] = _pad(bd.reshape(-1), (po,))
     return packed
 
@@ -291,16 +315,23 @@ def run_stage(x_nhwc: torch.Tensor, stage: FusedStage) -> torch.Tensor:
     if device.type != "cuda":
         raise ValueError(f"run_stage runs on CUDA or CPU tensors, got {device}")
     B, H, W, _ = x_nhwc.shape
-    if B > 65535:
-        raise ValueError("at most 65,535 images a call")
     lib = native.library()
     for blk in stage.packed:
-        need = lib.tpubody_fused_stage_smem_bytes(blk["c_mid"],
+        if blk["c_in"] % 8 or blk["c_out"] % 8:
+            raise ValueError(
+                f"the kernel takes channel counts that are multiples of 8, "
+                f"got C_in = {blk['c_in']}, C_out = {blk['c_out']}")
+        need = lib.tpubody_fused_stage_smem_bytes(W, blk["c_mid"],
                                                   int(blk["wd"] is not None))
+        if need < 0:
+            raise ValueError(f"C_mid = {blk['c_mid']}: the kernel takes at "
+                             f"most 128")
         if need > MAX_SMEM:
             raise ValueError(
-                f"C_mid = {blk['c_mid']} needs {need} bytes of shared memory "
-                f"a block; the card has {MAX_SMEM}")
+                f"W = {W}, C_mid = {blk['c_mid']} needs {need} bytes of "
+                f"shared memory a block; the card has {MAX_SMEM}")
+    if B * (H + 1) * (W + 2) > 2 ** 30:
+        raise ValueError("at most 2^30 padded positions a call")
     y = x_nhwc.to(torch.bfloat16).contiguous()
 
     def ptr(t):

@@ -134,7 +134,7 @@ def library() -> ctypes.CDLL:
         lib.tpubody_zbuffer.restype = ci
         lib.tpubody_fused_stage_block.argtypes = [vp] * 10 + [ci] * 6 + [vp]
         lib.tpubody_fused_stage_block.restype = ci
-        lib.tpubody_fused_stage_smem_bytes.argtypes = [ci, ci]
+        lib.tpubody_fused_stage_smem_bytes.argtypes = [ci, ci, ci]
         lib.tpubody_fused_stage_smem_bytes.restype = ci
         lib.tpubody_cuda_error_string.argtypes = [ci]
         lib.tpubody_cuda_error_string.restype = ctypes.c_char_p

@@ -10,7 +10,8 @@ Stages (call stack parity with main.py:28-141):
   6. stitch the two depth meshes + recover 3D joints: mesh.stitch,
   7. rig the mesh onto the SMPL skeleton: mesh.rigging.
 
-Stages 1-5 run on the device the body models live on.  Stages 6-7 (the
+Stages 1-5 run on the device :func:`reconstruct` is given (the card
+unless the caller asks for the CPU).  Stages 6-7 (the
 host-side mesh modules) are not ported yet: :func:`reconstruct` runs the
 device stages and then raises ``NotImplementedError``.
 
@@ -31,6 +32,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from tpubody_torch.device import DeviceLike, resolve
 from tpubody_torch.image import warp as warp_lib
 from tpubody_torch.mesh import rigging
 from tpubody_torch.models import params as params_lib
@@ -217,14 +219,23 @@ def reconstruct(
     replace_hands: bool = False,
     cache: bool = True,
     timer: Optional[StageTimer] = None,
+    device: DeviceLike = "cuda",
 ) -> ReconstructResult:
-    """Run the reconstruction (main.py:28-141 parity) on the device the
-    body models live on.
+    """Run the reconstruction (main.py:28-141 parity) on ``device``: the
+    card unless the caller passes ``device="cpu"``; raises where CUDA is
+    asked for and there is none.  The body models are moved there.
 
     Stages 1-5 run; the stitch stage then raises ``NotImplementedError``
     (the mesh modules behind stitch, rig and the hand graft are not ported
     yet), with the device stages' artifacts already in ``out_dir`` when the
     cache is on."""
+    dev = resolve(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if smplh_model.device != dev:
+        smplh_model = smplh_model.to(dev)
+    if smpl_model.device != dev:
+        smpl_model = smpl_model.to(dev)
     timer = timer or StageTimer()
     # TPUBODY_DETAIL=1: substage attribution (each substage then ends in a
     # device synchronisation; measurement mode only).
