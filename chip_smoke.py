@@ -32,9 +32,13 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                on tables that _bin_fused builds: two frames of the video
                clip at full width (1024^2, the humanoid avatar; the base
                pass and each ladder rung; 3 and 6 channels), two random
-               64x128 scenes, a 24-channel attribute stack, and a scene
-               whose chunk budget overflows.  Gate: win equal at every
-               pixel, attributes within 1e-6 of the largest attribute;
+               64x128 scenes, a 24-channel attribute stack, a scene
+               whose chunk budget overflows, and a heavy tile (38 chunks:
+               more than the blocks of a cluster) and a sliver scene of
+               two frames each at clusters of 1 and 2 blocks a tile.
+               Gate: win equal at every pixel, attributes within 1e-6 of
+               the largest attribute (phase 9 holds the 8-frame launches
+               of the video path to the same gate);
   7. video   — the animation path at full width through its entry point:
                a humanoid avatar (6890 vertices, 13,524 faces) saved with
                save_avatar, a seeded 64-frame AMASS-format clip, then
@@ -51,15 +55,25 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                fragment renderer render_frames at 256^2: more than 99.5%
                of values within 2e-2;
   9. video timing — frames/s of a warm second pass of the video path and
-               CUDA-event times per layer; fused_raster against its plain
-               version and its bound.
+               CUDA-event times per layer; fused_raster per pass of an
+               8-frame block, held to its plain version on the block's own
+               tables (phase 6's gate) and timed against it and its bound
+               (bytes: the valid chunks and the outputs; operations: the
+               real faces, not sentinel slots, at every pixel of their
+               tile), at the cluster size the wrapper chooses and at 1 and
+               2, with the histogram of chunks a tile (max, p99, share of
+               empty tiles); the base pass of 1-6 and 8 frames at clusters
+               of 1 and 2, each held to the plain version and timed (where
+               the wrapper's threshold comes from).
 
   10. zbuffer — hold the z-buffer kernel to its plain PyTorch version on
                tables that bin_faces builds: the body-map scene at full
                width (the fitted 6890-vertex SMPLH body at 1024^2, focal
                5000; front, back and all faces), two random 64x128 scenes
-               of two frames, a scene under 64 faces (the wrapped key) and
-               one whose tiles overflow.  Gate: equal at every pixel.  On
+               of two frames, a scene under 64 faces (the wrapped key), one
+               whose tiles overflow, and a heavy tile (10 chunks of 128) and
+               a sliver scene at clusters of 1 and 2.  Gate: equal at
+               every pixel.  On
                the body-map scene its face ids are also held to the fused
                raster kernel's (at least 99.9% of the pixels);
   11. reconstruct — the device half of the reconstruct pipeline at full
@@ -82,21 +96,32 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                a second run of the helper, the card's busy share of
                normal2depth and of the warp under torch.profiler, the
                z-buffer kernel alone against its plain version and its
-               bound, and fused_raster at 24 channels.
+               bound (at the chosen cluster size and at 1 and 2), and
+               fused_raster at 24 channels, each with its histogram of
+               chunks a tile.
 
   13. stage   — hold the fused residual-stage kernel to its plain PyTorch
                version on the card, TF32 off: the four small shapes of
                tests/test_pallas_resnet.py (3 blocks with a downsample at
                12x12, 2 identity blocks at 8x8, a single block at 10x10, 2
                blocks at 11x19, all with 4 features), a zero input, and
-               full width at batch 8 (stage 1: 56^2, 64 -> 256 channels, 3
-               blocks; stage 2 tail: 28^2, 512 channels, 3 blocks) with
-               seeded weights and BatchNorm statistics.  Gate, on every
+               a 20 -> 10 -> 20 chain (channels off a multiple of 8: x
+               padded, y sliced), full width at batch 8 (stage 1: 56^2,
+               64 -> 256 channels, 3 blocks; stage 2 tail: 28^2, 512
+               channels, 3 blocks) and ResNet-50's stage 3 and 4 tails at
+               batch 512 (14^2, 1024 -> 256 -> 1024, 5 blocks; 7^2,
+               2048 -> 512 -> 2048, 2 blocks: C_mid above 128, the wide
+               route, one launch a bottleneck at stage 3 and two at
+               stage 4), with seeded weights and BatchNorm
+               statistics.  The plain version takes its sums in float64,
+               each rounded once to f32 (the library's fp32 convolutions
+               miss that on a share of elements that depends on the
+               algorithm it picks: printed for scale).  Gate, on every
                block alone and on the small chains: max |d| within 2 bf16
                ulps of the largest output (2^-7 of it) and at least 99% of
                the elements equal bit for bit: both round h1, h2 and y to
                bf16 at the same places and differ only in the order of
-               their f32 sums.  A full-width chain of three: 4 ulps;
+               their f32 sums.  A full-width chain: 4 ulps;
   14. backbone — the fused stage on the full-width serving model:
                create_hmr(dtype=bf16) (ResNet-50 at (3, 4, 6, 3)) with
                seeded BatchNorm statistics, 512 images of 224^2 through the
@@ -104,20 +129,26 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                run_stage against layer1 by the library's bf16
                convolutions, layer2[0] by the library, and
                fuse_stage(layer2, [1, 2, 3]) -> run_stage against
-               layer2[1:]: max |d| / max |ref| < 2e-2 (the bar of
-               tests/test_pallas_resnet.py).  The launch counters are
-               zeroed just before and fused_stage must have launched 6
-               times.  The same two outputs are then held to the plain
+               layer2[1:], and likewise layer3[1:] (after layer3[0]) and
+               layer4[1:] (after layer4[0]): max |d| / max |ref| < 2e-2
+               (the bar of tests/test_pallas_resnet.py).  The launch
+               counters are zeroed just before and fused_stage must have
+               launched 15 times (3 + 3 + 5, and 2 a bottleneck of stage
+               4).  The same four outputs are then held to the plain
                version on the same inputs and weights, all 512 images in
                chunks of 8 (the gates of phase 13, block by block on the
                first chunk), which also times the plain version at that
-               batch.  Then tpubody_torch.bench.fused_stage(1) and (2)
+               batch.  Stages 3 and 4 are timed on the model's activations
+               in turns with the library's chain (kernel, library,
+               library, kernel).  Then tpubody_torch.bench.fused_stage(1)
+               and (2)
                (kernel and library ms at batch 512, in one run), the bound,
                bench.backbone_split of the flagship
                step, and the s2d stem against conv7 (fp32 within 1e-4, and
                both stems' ms in bf16).
 
-It then prints the kernel line, the card's name and power limit, and, last,
+It then prints the kernel line (each kernel with the card's name and power
+limit), the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.  It needs one CUDA GPU and no network.
 ``--phases a,b`` runs a subset (names: lbs, serve, bench, raster, video,
 oracle, vtiming, zbuffer, reconstruct, rtiming, stage, backbone, and the
@@ -154,14 +185,19 @@ CPU_VERT_ATOL = 1e-4      # LBS, card vs CPU: the repo's vertex budget
 RASTER_ATTR_REL = 1e-6    # fused_raster attrs vs plain, of the largest attr
 ORACLE_ATOL = 2e-2        # tiled vs fragment renderer, per value
 ORACLE_AGREE = 0.995      # share of values that must agree
-# fused_raster, operations per face and pixel, counted from the kernel's
-# source: three edge functions of one multiply and two adds each (9), the
-# three a*px products shared by a thread's four pixels (0.75), three
-# comparisons (3); depth and key only where a pixel is covered (not
-# counted).
+# The raster kernels, operations per face and pixel of the function they
+# compute (every real face of a tile at every pixel of it, as the plain
+# version does): three edge functions of one multiply and two adds each
+# (9), the three a*px products shared by a thread's four pixels (0.75),
+# three comparisons (3); depth and key only where a pixel is covered (not
+# counted).  Sentinel slots are not counted.  The kernels evaluate fewer
+# pairs (the warp rejection) and issue these as unfused instructions, half
+# the rate that the fp32 peak (which counts an FMA as two) assumes.
 RASTER_OPS_PER_FACE_PIXEL = 12.75
 VIDEO_FRAMES = 64
 VIDEO_SIZE = 1024
+T_1024 = (VIDEO_SIZE // 8) * (VIDEO_SIZE // 128)   # raster tiles a frame
+CLUSTER_FRAMES = (1, 2, 3, 4, 5, 6, 8)   # phase 9: launches at both clusters
 RECON_SIZE = 1024
 RECON_SMALL = 256         # the card-vs-CPU run of the reconstruct path
 FACE_ID_AGREE = 0.999     # zbuffer vs fused_raster face ids, share of pixels
@@ -181,6 +217,7 @@ TIGHT_SHARE = 0.999       # share of pixels held to the tight bars
 # The demo fixture of the reconstruct pipeline: body shape (girth +2.5
 # keeps the forearms several pixels wide) and the shape of the "photo".
 BACKBONE_BATCH = 512
+TAIL_BATCH = 512          # phase 13's stage 3 and 4 tails
 # fused_stage vs its plain version.  Both round h1, h2 and y to bf16 at the
 # same places and differ in the order of their f32 sums, so an element can
 # land on the other side of a rounding boundary.  One block on the same
@@ -501,6 +538,62 @@ def random_scene(H, W, n_faces, max_extent, seed, n_chan):
     return verts2, faces2, attrs
 
 
+def piled_scene(n_faces):
+    """n_faces faces piled on one tile: 13 chunks of 32 at 400; at 1200, 38
+    of 32 and 10 of 128, more chunks than the blocks of a cluster."""
+    rng = np.random.default_rng(3)
+    V = 3 * n_faces
+    v = np.stack([rng.uniform(4, 100, V), rng.uniform(1, 6, V),
+                  rng.uniform(1, 2, V)], 1).astype(np.float32)
+    f = np.arange(V).reshape(n_faces, 3).astype(np.int32)
+    a = rng.uniform(size=(V, 3)).astype(np.float32)
+    return v, f, a
+
+
+def sliver_scene(H, W, n_faces=80, seed=11):
+    """Long thin triangles, 5-40 pixels long and 1e-3 to 0.5 pixels wide."""
+    rng = np.random.default_rng(seed)
+    p0 = np.stack([rng.uniform(0, W, n_faces), rng.uniform(0, H, n_faces)], 1)
+    ang = rng.uniform(0, 2 * np.pi, n_faces)
+    d = np.stack([np.cos(ang), np.sin(ang)], 1)
+    nrm = np.stack([-d[:, 1], d[:, 0]], 1)
+    length = rng.uniform(5, 40, n_faces)[:, None]
+    width = 10 ** rng.uniform(-3, np.log10(0.5), n_faces)[:, None]
+    p1 = p0 + length * d
+    p2 = p0 + rng.uniform(0, 1, (n_faces, 1)) * length * d + width * nrm
+    xy = np.stack([p0, p1, p2], 1).reshape(-1, 2)
+    v = np.concatenate([xy, rng.uniform(1, 5, (xy.shape[0], 1))], 1)
+    f = np.arange(3 * n_faces).reshape(n_faces, 3).astype(np.int32)
+    a = rng.uniform(size=(3 * n_faces, 3)).astype(np.float32)
+    return v.astype(np.float32), f, a
+
+
+def two_frames(v, dev):
+    """A scene and its copy shifted by (3, 1) pixels, as a batch of 2."""
+    import torch
+
+    return torch.as_tensor(np.stack([v, v + np.float32([3.0, 1.0, 0.0])]),
+                           device=dev)
+
+
+def chunk_histogram(per_tile):
+    """Chunks a tile: the largest, the 99th percentile, the share of empty
+    tiles."""
+    import torch
+
+    n = per_tile.reshape(-1).float()
+    return {"max": int(n.max()), "p99": float(torch.quantile(n, 0.99)),
+            "empty_share": float((n == 0).float().mean())}
+
+
+def real_faces(edges):
+    """Slots of a table whose edge functions are not the sentinel's
+    (a = b = 0, c = -1): edges (..., 3 edges, 3)."""
+    sent = ((edges[..., 0] == 0) & (edges[..., 1] == 0)
+            & (edges[..., 2] == -1)).all(dim=-1)
+    return int((~sent).sum())
+
+
 def make_avatar_and_clip(workdir):
     """The humanoid avatar at SMPL's size, saved in the avatar pickle
     schema, and a seeded 64-frame clip in AMASS format -> (avatar,
@@ -575,36 +668,54 @@ class VideoSetup:
             VIDEO_SIZE, VIDEO_SIZE, video.DEFAULT_FOCAL, shading)
 
 
-def check_raster_case(name, verts, faces, attrs, H, W, total_chunks, sx, sy):
-    """Bin, run the kernel and its plain version on the same table, and
-    hold them together -> (attr max |d|, overflow, hits)."""
+def check_raster_case(name, verts, faces, attrs, H, W, total_chunks, sx, sy,
+                      cluster=None):
+    """Bin, run the kernel (in clusters of ``cluster`` blocks a tile where
+    it is given, else as fused_raster chooses) and its plain version on the
+    same table, and hold them together -> (attr max |d|, overflow, hits)."""
     import torch
 
-    from tpubody_torch.render import raster, tiled_raster as TR
+    from tpubody_torch.render import tiled_raster as TR
 
     table, cstarts, nvalid, overflow, meta = TR._bin_fused(
         verts, faces, attrs, H, W, total_chunks, sx, sy)
     fb, dl = meta["fb"], meta["depth_levels"]
-    win, attr = TR.fused_raster(table, cstarts, H, W, fb, dl)
+    if cluster is None:
+        win, attr = TR.fused_raster(table, cstarts, H, W, fb, dl)
+    else:
+        win, attr = TR._fused_raster_launch(table, cstarts, H, W, fb, dl,
+                                            cluster)
     torch.cuda.synchronize()
     win_p, attr_p = TR.fused_raster_reference(table, cstarts, H, W, fb, dl)
-    C = attrs.shape[-1]
-    if win.shape != (verts.shape[0], H, W) or \
-            attr.shape != (verts.shape[0], C, H, W):
+    err, hits = hold_raster(
+        name, win, attr, win_p, attr_p,
+        f" chunks={int(nvalid.sum()):6d} overflow={int(overflow.sum()):4d}")
+    return err, int(overflow.sum()), hits
+
+
+def hold_raster(name, win, attr, win_p, attr_p, info=""):
+    """The raster gate: fused_raster's (win, attr) against its plain
+    version's on the same table; logs one line (with ``info``) ->
+    (attr max |d|, hits), or raises where they disagree."""
+    import torch
+
+    from tpubody_torch.render import raster
+
+    B, C, H, W = attr_p.shape
+    if win.shape != (B, H, W) or attr.shape != (B, C, H, W):
         raise RuntimeError(f"{name}: shapes {win.shape} {attr.shape}")
     n_diff = int((win != win_p).sum())
     hits = int((win != raster.INT32_MAX).sum())
     err = (attr - attr_p).abs().max().item()
     bar = RASTER_ATTR_REL * max(attr_p.abs().max().item(), 1e-30)
     ok = n_diff == 0 and err <= bar and bool(torch.isfinite(attr).all())
-    log(f"  {name:34s} C={C:2d} chunks={int(nvalid.sum()):6d}"
-        f" overflow={int(overflow.sum()):4d} hits={hits:8d}"
+    log(f"  {name:34s} C={C:2d}{info} hits={hits:8d}"
         f" win diffs={n_diff} attr max|d|={err:.3e}"
         f" {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError(f"fused_raster disagrees with its plain version: "
                            f"{name}")
-    return err, int(overflow.sum()), hits
+    return err, hits
 
 
 def phase_raster_kernels(setup):
@@ -635,18 +746,28 @@ def phase_raster_kernels(setup):
         if ov or not hits:
             raise RuntimeError("random scene: unexpected overflow or no hit")
     # (d) 400 faces piled on one tile (13 chunks) with a budget of 8.
-    rng = np.random.default_rng(3)
-    v = np.stack([rng.uniform(4, 100, 1200), rng.uniform(1, 6, 1200),
-                  rng.uniform(1, 2, 1200)], 1).astype(np.float32)
-    f = np.arange(1200).reshape(400, 3).astype(np.int32)
-    a = rng.uniform(size=(1200, 3)).astype(np.float32)
+    v, f, a = piled_scene(400)
     err, ov, hits = check_raster_case(
         "overflowing budget 64x128",
         torch.as_tensor(v, device=dev)[None], torch.as_tensor(f, device=dev),
         torch.as_tensor(a, device=dev)[None], 64, 128, 8, 2, 5)
     if ov == 0:
         raise RuntimeError("the overflow case dropped no face")
-    return max(worst, err)
+    worst = max(worst, err)
+    # (e) a heavy tile (38 chunks: more than the blocks of a cluster) and
+    # slivers, two frames, at each cluster size of the kernel
+    for name, (v, f, a) in (("heavy tile 64x128", piled_scene(1200)),
+                            ("slivers 64x128", sliver_scene(64, 128))):
+        for cluster in (1, 2):
+            err, ov, hits = check_raster_case(
+                f"{name} cluster {cluster}", two_frames(v, dev),
+                torch.as_tensor(f, device=dev),
+                torch.as_tensor(np.stack([a, a]), device=dev),
+                64, 128, 8 * 8, 2, 5, cluster)
+            worst = max(worst, err)
+            if not hits:
+                raise RuntimeError(f"{name}: nothing was covered")
+    return worst
 
 
 class FrameCollector:
@@ -881,6 +1002,7 @@ def phase_video_timing(setup, workdir, video_res, raster_err):
     block = setup.verts[:8].contiguous()
     H = W = VIDEO_SIZE
     n_pass = len(setup.passes)
+    raster_err = 0.0 if raster_err is None else raster_err
     split = {}
     split["skinning_64_frames"] = time_ms(lambda: rigging.animate(
         setup.avatar, setup.clip.poses, setup.clip.trans, device=dev),
@@ -920,32 +1042,80 @@ def phase_video_timing(setup, workdir, video_res, raster_err):
         raise RuntimeError("the block did not bin once per pass")
 
     # The kernel alone, per pass: back-to-back launches on the block's own
-    # tables (L2 warm), its plain version, and its bound.
+    # tables (L2 warm), held to its plain version on them (the route the
+    # main path takes at 8 frames), its bound.
     screen, attrs = setup.screen_attrs(slice(0, 8), "gouraud")
     passes = []
     for i, (faces, sx, sy, tc) in enumerate(setup.passes):
         table, cstarts, nvalid, _, meta = TR._bin_fused(
             screen, faces, attrs, H, W, tc, sx, sy)
         fb, dl = meta["fb"], meta["depth_levels"]
+        B, MAXC, CF, G, _ = table.shape
+        win, attr = TR.fused_raster(table, cstarts, H, W, fb, dl)
+        torch.cuda.synchronize()
+        win_p, attr_p = TR.fused_raster_reference(table, cstarts, H, W, fb,
+                                                  dl)
+        err, _ = hold_raster(f"video block B={B} pass {i}", win, attr, win_p,
+                             attr_p, f" cluster={TR.cluster_for(B * T_1024)}")
+        raster_err = max(raster_err, err)
+        del win, attr, win_p, attr_p
         k_ms = time_ms(lambda: TR.fused_raster(table, cstarts, H, W, fb, dl),
                        iters=20, warmup=3)
+        cluster_ms = {c: time_ms(lambda: TR._fused_raster_launch(
+            table, cstarts, H, W, fb, dl, c), iters=20, warmup=3)
+            for c in (1, 2)}
         p_ms = time_ms(lambda: TR.fused_raster_reference(
             table, cstarts, H, W, fb, dl), iters=2, warmup=1)
-        B, MAXC, CF, G, _ = table.shape
         chunks = int(torch.clamp(nvalid, max=MAXC).sum())
+        edges = table[:, :, :, 0:3, :][
+            torch.arange(MAXC, device=dev)[None] < nvalid[:, None]]
+        real = real_faces(edges)
+        # (face, warp) pairs the kernel's rejection keeps
+        kept = int((~TR.warp_rejects(edges[:, :, None],
+                                     TR.warp_rects(dev))).sum())
         nbytes = chunks * CF * G * 3 * 4 + cstarts.numel() * 4 \
             + B * H * W * 4 * (1 + G - 5)
-        ops = chunks * CF * TR.LP * RASTER_OPS_PER_FACE_PIXEL
+        ops = real * TR.LP * RASTER_OPS_PER_FACE_PIXEL
         bytes_ms = nbytes / PEAK_BYTES * 1e3
         ops_ms = ops / PEAK_FP32 * 1e3
         passes.append(dict(
             faces=int(faces.shape[0]), spans=[sx, sy], total_chunks=tc,
-            valid_chunks=chunks,
+            valid_chunks=chunks, real_faces_in_chunks=real,
+            kept_face_warp_pairs=kept,
+            chunks_a_tile=chunk_histogram(cstarts[:, 1:] - cstarts[:, :-1]),
+            cluster=TR.cluster_for(B * T_1024),
             bin_ms_in_block=sum(spans["binning"][i::n_pass]) / iters,
             ms_in_block=sum(spans["fused_raster"][i::n_pass]) / iters,
-            ms=k_ms, plain_ms=p_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
+            ms=k_ms, ms_by_cluster=cluster_ms, plain_ms=p_ms,
+            bytes_ms=bytes_ms, ops_ms=ops_ms,
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations"))
+
+    # Where clusters of 2 stop paying: the base pass of 1 to 8 frames at
+    # both sizes, each launch held to the plain version (the wrapper takes
+    # 2 up to TR.CLUSTER_TILES tiles a launch, 1 above).
+    faces, sx, sy, tc = setup.passes[0]
+    by_frames = {}
+    for nf in CLUSTER_FRAMES:
+        sc, at = setup.screen_attrs(slice(0, nf), "gouraud")
+        table, cstarts, _, _, meta = TR._bin_fused(sc, faces, at, H, W, tc,
+                                                   sx, sy)
+        fb, dl = meta["fb"], meta["depth_levels"]
+        win_p, attr_p = TR.fused_raster_reference(table, cstarts, H, W, fb,
+                                                  dl)
+        by_frames[nf] = {}
+        for c in (1, 2):
+            win, attr = TR._fused_raster_launch(table, cstarts, H, W, fb, dl,
+                                                c)
+            torch.cuda.synchronize()
+            err, _ = hold_raster(f"base pass {nf} frames cluster {c}", win,
+                                 attr, win_p, attr_p)
+            raster_err = max(raster_err, err)
+            by_frames[nf][c] = time_ms(lambda: TR._fused_raster_launch(
+                table, cstarts, H, W, fb, dl, c), iters=20, warmup=3)
+        log(f"  base pass, {nf} frames ({nf * T_1024} tiles): ms at clusters "
+            f"of 1, 2: {by_frames[nf][1]:.4f}, {by_frames[nf][2]:.4f}; the "
+            f"wrapper takes {TR.cluster_for(nf * T_1024)}")
 
     frames = render_block(block)
     host = torch.empty(frames.shape, dtype=frames.dtype, pin_memory=True)
@@ -966,7 +1136,8 @@ def phase_video_timing(setup, workdir, video_res, raster_err):
                frames=VIDEO_FRAMES, size=VIDEO_SIZE, block=chunk,
                transfer=video_res["warm"]["transfer"],
                have_cv2=video_res["have_cv2"],
-               block_split_ms=split, passes=passes)
+               block_split_ms=split, passes=passes,
+               base_pass_ms_by_frames_and_cluster=by_frames)
     log(f"  video: {res['frames_per_s']:.2f} frames/s warm "
         f"({res['frames_per_s_cold']:.2f} cold); ms per 8-frame block: "
         + ", ".join(f"{k} {v:.3f}" if v is not None else f"{k} not measured"
@@ -1158,9 +1329,11 @@ def zbuffer_plan(screen, faces, H, W):
     return sx, sy, nc, tc
 
 
-def check_zbuffer_case(name, verts, faces, H, W, nc, sx, sy):
-    """Bin, run the kernel and its plain version on the same table and hold
-    them together -> (max |key difference|, overflow, hits, zbuf)."""
+def check_zbuffer_case(name, verts, faces, H, W, nc, sx, sy, cluster=None):
+    """Bin, run the kernel (in clusters of ``cluster`` blocks a tile where
+    it is given, else as zbuffer chooses) and its plain version on the same
+    table and hold them together -> (max |key difference|, overflow, hits,
+    zbuf)."""
     import torch
 
     from tpubody_torch.render import raster, tiled_raster as TR
@@ -1168,7 +1341,8 @@ def check_zbuffer_case(name, verts, faces, H, W, nc, sx, sy):
     table, nchunks, overflow = TR.bin_faces(verts, faces, H, W, nc, sx, sy)
     fb = raster._face_bits(int(faces.shape[0]))
     dl = 1 << (31 - fb)
-    z = TR.zbuffer(table, nchunks, H, W, fb, dl)
+    z = (TR.zbuffer(table, nchunks, H, W, fb, dl) if cluster is None else
+         TR._zbuffer_launch(table, nchunks, H, W, fb, dl, cluster))
     torch.cuda.synchronize()
     z_p = TR.zbuffer_reference(table, nchunks, H, W, fb, dl)
     if z.shape != (verts.shape[0], H, W) or z.dtype != torch.int32:
@@ -1235,10 +1409,7 @@ def phase_zbuffer(recon):
         if ov or not hits:
             raise RuntimeError("random scene: unexpected overflow or no hit")
     # (d) 400 faces piled on one tile with a capacity of 128 and of 256
-    rng = np.random.default_rng(3)
-    v = np.stack([rng.uniform(4, 100, 1200), rng.uniform(1, 6, 1200),
-                  rng.uniform(1, 2, 1200)], 1).astype(np.float32)
-    f = np.arange(1200).reshape(400, 3).astype(np.int32)
+    v, f, _ = piled_scene(400)
     for nc in (1, 2):
         err, ov, hits, _ = check_zbuffer_case(
             "overflowing tile 64x128", torch.as_tensor(v, device=dev)[None],
@@ -1246,6 +1417,17 @@ def phase_zbuffer(recon):
         total = max(total, err)
         if ov == 0:
             raise RuntimeError("the overflow case dropped no face")
+    # (e) a heavy tile (10 chunks of 128: more than the blocks of a
+    # cluster) and slivers, two frames, at each cluster size of the kernel
+    for name, (v, f, _) in (("heavy tile 64x128", piled_scene(1200)),
+                            ("slivers 64x128", sliver_scene(64, 128))):
+        for cluster in (1, 2):
+            err, ov, hits, _ = check_zbuffer_case(
+                f"{name} cluster {cluster}", two_frames(v, dev),
+                torch.as_tensor(f, device=dev), 64, 128, 10, 2, 5, cluster)
+            total = max(total, err)
+            if ov or not hits:
+                raise RuntimeError(f"{name}: overflow or no hit")
     return total
 
 
@@ -1509,20 +1691,29 @@ def phase_recon_timing(recon, workdir, recon_res, zbuffer_diffs):
         dl = 1 << (31 - fb)
         k_ms = time_ms(lambda: TR.zbuffer(table, nchunks, S, S, fb, dl),
                        iters=50, warmup=5)
+        cluster_ms = {c: time_ms(lambda: TR._zbuffer_launch(
+            table, nchunks, S, S, fb, dl, c), iters=50, warmup=5)
+            for c in (1, 2)}
         p_ms = time_ms(lambda: TR.zbuffer_reference(table, nchunks, S, S, fb,
                                                     dl), iters=3, warmup=1)
         bin_ms = time_ms(lambda: TR.bin_faces(screen[None], faces, S, S, nc,
                                               sx, sy), iters=5, warmup=1)
         chunks = int(nchunks.sum())
+        live = (torch.arange(nc, device=dev)[None, None]
+                < nchunks[..., None])                       # (1, T, NC)
+        real = real_faces(table.reshape(1, -1, nc, 5, TR.CF, 4)[
+            live][:, 0:3, :, 0:3].permute(0, 2, 1, 3))
         nbytes = chunks * 5 * TR.CF * 4 * 4 + nchunks.numel() * 4 + S * S * 4
-        ops = chunks * TR.CF * TR.LP * RASTER_OPS_PER_FACE_PIXEL
+        ops = real * TR.LP * RASTER_OPS_PER_FACE_PIXEL
         bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
         zb.append(dict(
             name=name, faces=int(faces.shape[0]), spans=[sx, sy],
-            max_chunks=nc, live_chunks=chunks,
+            max_chunks=nc, live_chunks=chunks, real_faces_in_chunks=real,
             live_tiles=int((nchunks > 0).sum()), table_mb=table.numel() * 4e-6,
-            ms=k_ms, plain_ms=p_ms, bin_ms=bin_ms, bytes_ms=bytes_ms,
-            ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
+            chunks_a_tile=chunk_histogram(nchunks), cluster=TR.cluster_for(
+                (S // TR.TILE_H) * (S // TR.TILE_W)),
+            ms=k_ms, ms_by_cluster=cluster_ms, plain_ms=p_ms, bin_ms=bin_ms,
+            bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations"))
 
         ftab, cstarts, nvalid, _, meta = TR._bin_fused(
@@ -1534,12 +1725,16 @@ def phase_recon_timing(recon, workdir, recon_res, zbuffer_diffs):
             ftab, cstarts, S, S, ffb, fdl), iters=2, warmup=1)
         _, MAXC, CFf, G, _ = ftab.shape
         fchunks = int(torch.clamp(nvalid, max=MAXC).sum())
+        freal = real_faces(ftab[:, :, :, 0:3, :][
+            torch.arange(MAXC, device=dev)[None] < nvalid[:, None]])
         fbytes = fchunks * CFf * G * 3 * 4 + cstarts.numel() * 4 \
             + S * S * 4 * (1 + G - 5)
-        fops = fchunks * CFf * TR.LP * RASTER_OPS_PER_FACE_PIXEL
+        fops = freal * TR.LP * RASTER_OPS_PER_FACE_PIXEL
         fb_ms, fo_ms = fbytes / PEAK_BYTES * 1e3, fops / PEAK_FP32 * 1e3
         fused.append(dict(
             name=name, C=G - 5, total_chunks=tc, valid_chunks=fchunks,
+            real_faces_in_chunks=freal,
+            chunks_a_tile=chunk_histogram(cstarts[:, 1:] - cstarts[:, :-1]),
             ms=fk_ms, plain_ms=fp_ms, bytes_ms=fb_ms, ops_ms=fo_ms,
             bound_ms=max(fb_ms, fo_ms),
             bound_by="bytes" if fb_ms >= fo_ms else "operations"))
@@ -1577,11 +1772,12 @@ def phase_recon_timing(recon, workdir, recon_res, zbuffer_diffs):
 
 
 # -- the fused residual stage ------------------------------------------------
-def seeded_chain(c_in, feats, n, seed, full_width):
-    """n stride-1 Bottlenecks of the port on the CPU in float32.  Small
-    chains draw every weight and BatchNorm statistic uniformly from [0.05,
-    0.4] (tests/test_pallas_resnet.py); full-width ones take the model's
-    seeded initialisation and seeded BatchNorm statistics."""
+def seeded_chain(c_in, feats, n, seed, full_width, c_out=None):
+    """n stride-1 Bottlenecks of the port on the CPU in float32, of
+    ``c_out`` output channels (4 * feats where None).  Small chains draw
+    every weight and BatchNorm statistic uniformly from [0.05, 0.4]
+    (tests/test_pallas_resnet.py); full-width ones take the model's seeded
+    initialisation and seeded BatchNorm statistics."""
     import torch
 
     from tpubody_torch import bench
@@ -1589,8 +1785,15 @@ def seeded_chain(c_in, feats, n, seed, full_width):
 
     mods = []
     for _ in range(n):
-        mods.append(hmr.Bottleneck(c_in, feats, 1))
-        c_in = feats * 4
+        blk = hmr.Bottleneck(c_in, feats, 1)
+        if c_out is not None and c_out != feats * 4:
+            blk.conv3 = torch.nn.Conv2d(feats, c_out, 1, bias=False)
+            blk.bn3 = torch.nn.BatchNorm2d(c_out)
+            blk.downsample = None if c_in == c_out else torch.nn.Sequential(
+                torch.nn.Conv2d(c_in, c_out, 1, bias=False),
+                torch.nn.BatchNorm2d(c_out))
+        mods.append(blk)
+        c_in = feats * 4 if c_out is None else c_out
     chain = torch.nn.Sequential(*mods).eval()
     if full_width:
         hmr.init_weights(chain, seed)
@@ -1610,25 +1813,59 @@ def ulps2(scale):
     return 2.0 * 2.0 ** (np.floor(np.log2(scale)) - 7)
 
 
-def block_by_block(x_nhwc, fused):
+def plain_f32_sums(x_nhwc, stage):
+    """The plain version's arithmetic with float32 sums (the library's fp32
+    convolutions) instead of float64 ones: printed for scale only."""
+    import torch
+    import torch.nn.functional as F
+
+    def conv(h, A, b, taps=1):
+        w = A.float()
+        w = (w[:, :, None, None] if taps == 1 else
+             w.reshape(A.shape[0], 3, 3, A.shape[0]).permute(0, 3, 1, 2))
+        return F.conv2d(h, w, padding=taps // 2) + b.reshape(1, -1, 1, 1)
+
+    def rounded(v):
+        return v.to(torch.bfloat16).float()
+
+    y = x_nhwc.to(torch.bfloat16).permute(0, 3, 1, 2).float()
+    for A1, b1, A2, b2, A3, b3, Ad, bd in stage.blocks():
+        res = y if Ad is None else conv(y, Ad, bd)
+        h1 = rounded(torch.relu(conv(y, A1, b1)))
+        h2 = rounded(torch.relu(conv(h1, A2, b2, taps=3)))
+        y = rounded(torch.relu(conv(h2, A3, b3) + res))
+    return y.permute(0, 2, 3, 1)
+
+
+def block_by_block(x_nhwc, fused, fp32_share=False):
     """Each block alone, on the plain version's input to it: what one launch
     computes, held to what the plain version computes from the same bits.
     -> (largest difference in units of 2 ulps of that block's largest
-    output, smallest share of elements equal bit for bit)."""
+    output, smallest share of elements equal bit for bit); with
+    ``fp32_share`` also, for scale, the smallest share of a block's
+    elements on which :func:`plain_f32_sums` equals the plain version
+    (float64 sums, each rounded once)."""
     import torch
 
     from tpubody_torch.models import fused_resnet as FR
 
     h, worst_err, worst_equal = x_nhwc.to(torch.bfloat16), 0.0, 1.0
+    share32 = 1.0
     for blk in fused.blocks():
         one = FR.FusedStage(*blk, *[getattr(fused, f)
                                     for f in FR.FIELDS[8:]], n_rest=0)
         a = FR.run_stage(h, one).float()
+        if fp32_share:
+            f32 = plain_f32_sums(h, one)
         h = FR.run_stage_reference(h, one)
         d = (a - h.float()).abs()
         worst_err = max(worst_err, d.max().item()
                         / ulps2(h.float().abs().max().item()))
         worst_equal = min(worst_equal, (d == 0).float().mean().item())
+        if fp32_share:
+            share32 = min(share32, (f32 == h.float()).float().mean().item())
+    if fp32_share:
+        return worst_err, worst_equal, share32
     return worst_err, worst_equal
 
 
@@ -1638,18 +1875,32 @@ def phase_stage(dev):
     from tpubody_torch import native
     from tpubody_torch.models import fused_resnet as FR
 
-    # name, (B, H, W, C_in), features, blocks, x seed, weight seed, kind
+    # name, (B, H, W, C_in), features, blocks, x seed, weight seed, kind,
+    # output channels (4 x features where None).  "full": full width at
+    # batch 8; "tail": ResNet-50's stage 3 and 4 tails (C_mid 256, 512: the
+    # wide route) at batch 512, held to the plain version block
+    # by block at that batch.
     cases = [
-        ("3 blocks, downsample 12x12", (2, 12, 12, 8), 4, 3, 1, 0, "small"),
-        ("2 blocks, identity 8x8", (2, 8, 8, 16), 4, 2, 2, 0, "small"),
-        ("single block 10x10", (1, 10, 10, 8), 4, 1, 3, 0, "small"),
-        ("2 blocks, ragged 11x19", (2, 11, 19, 8), 4, 2, 4, 0, "small"),
-        ("zero input 9x9", (1, 9, 9, 8), 4, 2, None, 5, "small"),
-        ("stage 1 full width", (8, 56, 56, 64), 64, 3, 6, 7, "full"),
-        ("stage 2 tail full width", (8, 28, 28, 512), 128, 3, 8, 9, "full"),
+        ("3 blocks, downsample 12x12", (2, 12, 12, 8), 4, 3, 1, 0, "small",
+         None),
+        ("2 blocks, identity 8x8", (2, 8, 8, 16), 4, 2, 2, 0, "small", None),
+        ("single block 10x10", (1, 10, 10, 8), 4, 1, 3, 0, "small", None),
+        ("2 blocks, ragged 11x19", (2, 11, 19, 8), 4, 2, 4, 0, "small", None),
+        ("zero input 9x9", (1, 9, 9, 8), 4, 2, None, 5, "small", None),
+        ("2 blocks, 20 -> 10 -> 20, 9x11", (2, 9, 11, 20), 10, 2, 10, 11,
+         "small", 20),
+        ("stage 1 full width", (8, 56, 56, 64), 64, 3, 6, 7, "full", None),
+        ("stage 2 tail full width", (8, 28, 28, 512), 128, 3, 8, 9, "full",
+         None),
+        (f"stage 3 tail, batch {TAIL_BATCH}", (TAIL_BATCH, 14, 14, 1024), 256,
+         5, 12, 13, "tail", None),
+        (f"stage 4 tail, batch {TAIL_BATCH}", (TAIL_BATCH, 7, 7, 2048), 512,
+         2, 14, 15, "tail", None),
     ]
-    for name, shape, feats, n, xseed, wseed, kind in cases:
-        chain = seeded_chain(shape[-1], feats, n, wseed, kind == "full")
+    lib = native.library()
+    for name, shape, feats, n, xseed, wseed, kind, c_out in cases:
+        chain = seeded_chain(shape[-1], feats, n, wseed, kind != "small",
+                             c_out)
         fused = FR.fuse_stage(chain, list(range(n))).to(dev)
         x = np.zeros(shape, np.float32) if xseed is None else \
             np.random.default_rng(xseed).normal(size=shape).astype(np.float32)
@@ -1657,10 +1908,14 @@ def phase_stage(dev):
         before = native.LAUNCHES["fused_stage"]
         got = FR.run_stage(xd, fused)
         torch.cuda.synchronize()
-        if native.LAUNCHES["fused_stage"] != before + n:
-            raise RuntimeError(f"{name}: run_stage did not launch {n} times")
+        launches = sum(lib.tpubody_fused_stage_launches(
+            shape[2], blk["c_mid"], int(blk["wd"] is not None))
+            for blk in fused.packed)
+        if native.LAUNCHES["fused_stage"] != before + launches:
+            raise RuntimeError(f"{name}: run_stage did not launch {launches} "
+                               f"times")
         want = FR.run_stage_reference(xd, fused)
-        c_out = feats * 4
+        c_out = c_out or feats * 4
         if got.shape != shape[:3] + (c_out,) or got.dtype != torch.bfloat16:
             raise RuntimeError(f"{name}: {tuple(got.shape)} {got.dtype}")
         g, w = got.float(), want.float()
@@ -1670,8 +1925,8 @@ def phase_stage(dev):
         with torch.no_grad():
             f32 = chain.to(dev)(xd.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         rel32 = (g - f32).abs().max().item() / f32.abs().max().item()
-        worst_err, worst_equal = block_by_block(xd, fused)
-        full = kind == "full"
+        full = kind != "small"
+        worst_err, worst_equal, *share32 = block_by_block(xd, fused, full)
         ok = (bool(torch.isfinite(g).all()) and scale > 0
               and worst_err <= 1.0 and worst_equal >= STAGE_EQUAL
               and err <= (STAGE_CHAIN_ULPS / 2 if full else 1) * ulps2(scale)
@@ -1684,6 +1939,10 @@ def phase_stage(dev):
             f" {equal * 100:.4f}%; vs the f32 chain rel {rel32:.2e}"
             f" {'ok' if ok else 'FAIL'}")
         if full:
+            log(f"    for scale: the plain version with float32 sums (the "
+                f"library's fp32 convolutions) equals it (float64 sums) on "
+                f"{share32[0] * 100:.4f}% of a block's elements at least")
+        if kind == "full":
             cpu = FR.run_stage_reference(xd.cpu(), fused.to("cpu")).float()
             log(f"    for scale: the plain version on the card vs on the CPU "
                 f"(two sum orders), chain: equal bits "
@@ -1721,14 +1980,16 @@ def hold_to_plain(x_nhwc, y, fused, name):
         equal = min(equal, (g == w).float().mean().item())
     torch.cuda.synchronize()
     plain_ms = sum(a.elapsed_time(b) for a, b in events)
-    blk_err, blk_equal = block_by_block(x_nhwc[:STAGE_CHUNK], fused)
+    blk_err, blk_equal, share32 = block_by_block(x_nhwc[:STAGE_CHUNK], fused,
+                                                 True)
     ok = (scale > 0 and blk_err <= 1.0 and blk_equal >= STAGE_EQUAL
           and err <= STAGE_CHAIN_ULPS / 2 * ulps2(scale))
     log(f"  {name} vs the plain version, {B // STAGE_CHUNK} chunks of "
         f"{STAGE_CHUNK}: chain max|d|={err:.3e} of max {scale:.3e} "
         f"({2 * err / ulps2(scale):.1f} ulp), smallest share of equal bits "
         f"{equal * 100:.4f}%; first chunk block by block: max|d| "
-        f"{2 * blk_err:.1f} ulp, equal bits {blk_equal * 100:.4f}%; plain "
+        f"{2 * blk_err:.1f} ulp, equal bits {blk_equal * 100:.4f}% (for "
+        f"scale, float32 sums: {share32 * 100:.4f}%); plain "
         f"{plain_ms:.3f} ms {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError(f"fused_stage disagrees with its plain version "
@@ -1763,43 +2024,93 @@ def phase_backbone(dev):
 
     with torch.inference_mode():
         x1 = bb.stem(images)                      # (512, 64, 56, 56)
-        fused1 = FR.fuse_stage(bb.layer1, [0, 1, 2]).to(dev)
-        fused2 = FR.fuse_stage(bb.layer2, [1, 2, 3]).to(dev)
+        fused = {1: FR.fuse_stage(bb.layer1, [0, 1, 2]).to(dev),
+                 2: FR.fuse_stage(bb.layer2, [1, 2, 3]).to(dev),
+                 3: FR.fuse_stage(bb.layer3, [1, 2, 3, 4, 5]).to(dev),
+                 4: FR.fuse_stage(bb.layer4, [1, 2]).to(dev)}
+        # the library's head of each stage, then its stride-1 chain
+        head = {1: None, 2: bb.layer2[0], 3: bb.layer3[0], 4: bb.layer4[0]}
+        chain = {1: bb.layer1, 2: bb.layer2[1:], 3: bb.layer3[1:],
+                 4: bb.layer4[1:]}
         native.reset_launches()
-        y1 = FR.run_stage(nhwc(x1), fused1)
-        ref1 = bb.layer1(x1)
-        x2 = bb.layer2[0](ref1)                   # (512, 512, 28, 28)
-        y2 = FR.run_stage(nhwc(x2), fused2)
+        xs, ys, refs, x = {}, {}, {}, x1
+        for s in (1, 2, 3, 4):
+            xs[s] = x if head[s] is None else head[s](x)
+            ys[s] = FR.run_stage(nhwc(xs[s]), fused[s])
+            refs[s] = x = chain[s](xs[s])
         torch.cuda.synchronize()
         launches = dict(native.LAUNCHES)
-        ref2 = bb.layer2[1:](x2)
-        rel1, rel2 = rel(y1, nhwc(ref1)), rel(y2, nhwc(ref2))
-        shapes = (tuple(y1.shape), tuple(y2.shape))
-        finite = bool(torch.isfinite(y1.float()).all()
-                      and torch.isfinite(y2.float()).all())
-        log(f"  run_stage on the model at batch {B}: layer1 {shapes[0]} vs "
-            f"the library rel {rel1:.3e}; layer2[1:] {shapes[1]} rel "
-            f"{rel2:.3e}; launches {launches}")
-        if shapes != ((B, 56, 56, 256), (B, 28, 28, 512)) or not finite:
+        rels = {s: rel(ys[s], nhwc(refs[s])) for s in ys}
+        shapes = tuple(tuple(ys[s].shape) for s in ys)
+        finite = all(bool(torch.isfinite(y.float()).all())
+                     for y in ys.values())
+        want = 3 + 3 + 5 + 2 * 2      # stage 4: two launches a bottleneck
+        log(f"  run_stage on the model at batch {B}: layer1, layer2[1:], "
+            f"layer3[1:], layer4[1:] {shapes} vs the library rel "
+            + ", ".join(f"{rels[s]:.3e}" for s in rels)
+            + f"; launches {launches}")
+        if shapes != ((B, 56, 56, 256), (B, 28, 28, 512), (B, 14, 14, 1024),
+                      (B, 7, 7, 2048)) or not finite:
             raise RuntimeError(f"bad outputs {shapes}, finite {finite}")
-        if max(rel1, rel2) >= STAGE_LIB_REL:
+        if max(rels.values()) >= STAGE_LIB_REL:
             raise RuntimeError("the fused stage disagrees with the library's "
                                "bf16 chain")
-        if launches["fused_stage"] != 6:
+        if launches["fused_stage"] != want:
             raise RuntimeError(f"fused_stage launched "
-                               f"{launches['fused_stage']} times, expected 6")
-        del ref1, ref2
+                               f"{launches['fused_stage']} times, expected "
+                               f"{want}")
+        del refs
         # the same outputs against the plain version, on the same inputs
         # and weights, at the same batch
-        plain = {1: hold_to_plain(nhwc(x1), y1, fused1, "layer1"),
-                 2: hold_to_plain(nhwc(x2), y2, fused2, "layer2[1:]")}
-        del y1, y2
-        # the kernel on the model's own activations
-        path_ms = {1: time_ms(lambda: FR.run_stage(nhwc(x1), fused1), 10, 2),
-                   2: time_ms(lambda: FR.run_stage(nhwc(x2), fused2), 10, 2)}
-        del x1, x2
+        names = {1: "layer1", 2: "layer2[1:]", 3: "layer3[1:]",
+                 4: "layer4[1:]"}
+        plain = {s: hold_to_plain(nhwc(xs[s]), ys[s], fused[s], names[s])
+                 for s in ys}
+        del ys
+        # the kernel on the model's own activations; stages 3 and 4 in
+        # turns with the library's chain (kernel, library, library, kernel)
+        path_ms, model_library_ms, run_launches = {}, {}, {}
+        for s in (1, 2, 3, 4):
+            def kernel():
+                return FR.run_stage(nhwc(xs[s]), fused[s])
+
+            def library():
+                return chain[s](xs[s])
+
+            if s <= 2:
+                path_ms[s] = time_ms(kernel, 10, 2)
+                continue
+            before = native.LAUNCHES["fused_stage"]
+            kernel()
+            run_launches[s] = native.LAUNCHES["fused_stage"] - before
+            k1, l1 = time_ms(kernel, 10, 2), time_ms(library, 10, 2)
+            l2, k2 = time_ms(library, 10, 2), time_ms(kernel, 10, 2)
+            path_ms[s], model_library_ms[s] = (k1 + k2) / 2, (l1 + l2) / 2
+            log(f"  {names[s]} on the model's activations, in turns: kernel "
+                f"{k1:.3f} / {k2:.3f} ms, library {l1:.3f} / {l2:.3f} ms")
+        del xs, x1
 
     stages = {}
+    for s in (3, 4):
+        H = W = {3: 14, 4: 7}[s]
+        work = bench.stage_work(fused[s], B, H, W)
+        bytes_ms = work["bytes"] / PEAK_BYTES * 1e3
+        ops_ms = work["flop"] / PEAK_BF16 * 1e3
+        stages[str(s)] = dict(
+            shape=[H, W, int(fused[s].A1_0.shape[1]),
+                   int(fused[s].A3_0.shape[0])],
+            batch=B, blocks=fused[s].n_rest + 1, on="the serving model",
+            launches_per_run=run_launches[s],
+            parity_rel_err=rels[s], ms=path_ms[s],
+            library_ms=model_library_ms[s],
+            library_ratio=path_ms[s] / model_library_ms[s],
+            max_abs_err=plain[s][0], plain_ms=plain[s][1],
+            plain_equal_share=plain[s][2], flop=work["flop"],
+            bytes=work["bytes"], bytes_ms=bytes_ms, ops_ms=ops_ms,
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            tflops=work["flop"] / path_ms[s] * 1e-9)
+        log(f"  stage {s}: {stages[str(s)]}")
     for s in (1, 2):
         res = bench.fused_stage(s, batch=B, iters=20, device=dev)
         bytes_ms = res["bytes"] / PEAK_BYTES * 1e3
@@ -1821,6 +2132,7 @@ def phase_backbone(dev):
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             tflops=res["flop"] / res["fused_ms"] * 1e-9)
         log(f"  stage {s}: {stages[str(s)]}")
+    stages = {k: stages[k] for k in sorted(stages)}
 
     with torch.inference_mode():
         split = bench.backbone_split(bench.make_step(dev), images, 10)
@@ -1849,7 +2161,7 @@ def phase_backbone(dev):
         raise RuntimeError("the s2d stem disagrees with conv7")
     log(json.dumps({"backbone": {
         "batch": B, "split_ms": split, "stem_ms": stem_ms,
-        "fused_vs_library_rel": [rel1, rel2], "stages": stages}}))
+        "fused_vs_library_rel": list(rels.values()), "stages": stages}}))
 
     main = stages["1"]
     return {
@@ -1860,7 +2172,7 @@ def phase_backbone(dev):
         "replaces_fn": "tpubody/models/pallas_resnet.py::_stage_kernel",
         "shape": {"B": B, "H": 56, "W": 56, "C_in": 64, "C_mid": 64,
                   "C_out": 256, "blocks": 3,
-                  "stage": "1 (stage 2's tail under stages)"},
+                  "stage": "1 (stage 2's, 3's and 4's tails under stages)"},
         "launches": launches["fused_stage"],
         "max_abs_err": main["max_abs_err"],
         "ms": main["ms"],
@@ -1990,6 +2302,8 @@ def main() -> int:
     if not full:
         log(f"phases {phases} passed on {smi} (subset: no result line)")
         return 0
+    for k in kernels:
+        k["card"] = smi
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -236,12 +236,16 @@ def test_packed_layout_pads_the_weights_with_zeros():
 
 
 @pytest.mark.parametrize("c_in,feats,down", [(8, 4, True), (256, 64, False),
-                                             (64, 32, True), (24, 40, True)])
+                                             (64, 32, True), (24, 40, True),
+                                             (1024, 256, False),
+                                             (2048, 512, False)])
 def test_unswizzled_tiles_give_back_the_padded_matrices(c_in, feats, down):
     """Un-swizzling the packed tiles gives back the zero-padded (C_mid,
     C_in), (9, C_mid, C_mid) and (C_out, C_mid) / (C_out, C_in) matrices
-    bit for bit, at widths of one chunk, of two chunks of 128 rows, and
-    of a chunk of 64 rows after one of 128."""
+    bit for bit, at widths of one chunk, of two chunks of 128 rows, of a
+    chunk of 64 rows after one of 128, and at ResNet-50's stage 3 and 4
+    widths (C_mid 256 and 512: the wide route reads w1 and w2 in column
+    chunks of 128 rows, chunk nc at offset nc * 128 * K)."""
     rng = np.random.default_rng(c_in + feats)
     blk_mod = thmr.Bottleneck(c_in, feats, 1)
     if not down:
@@ -296,6 +300,21 @@ def test_reference_matches_pallas_kernel(name):
         # every pixel away from the border
         g = got.float()
         assert g.abs().min() > 0 and torch.equal(g[0, 3, 3], g[0, 5, 4])
+
+
+@pytest.mark.parametrize("c,to", [(20, 24), (12, 16), (16, 16), (3, 8)])
+def test_pad_channels_zero_fills_the_channel_axis(c, to):
+    """run_stage pads x's channels to the kernel's multiple of 8 with
+    zeros (and slices y back): the values stay, the new channels are 0."""
+    x = torch.as_tensor(np.random.default_rng(c).normal(
+        size=(2, 3, 5, c)).astype(np.float32)).to(torch.bfloat16)
+    y = FR.pad_channels(x, to)
+    assert tuple(y.shape) == (2, 3, 5, to) and y.is_contiguous()
+    assert y.dtype == torch.bfloat16
+    assert torch.equal(y[..., :c], x) and not y[..., c:].any()
+    assert FR._round8(c) == to
+    with pytest.raises(ValueError, match="cannot pad"):
+        FR.pad_channels(x, c - 1)
 
 
 def test_cpu_tensor_takes_the_plain_version_and_counts_no_launch():
@@ -364,10 +383,74 @@ def cuda_case(name, device):
 @pytest.mark.parametrize("name", list(CUDA_CASES))
 def test_cuda_kernel_matches_plain(cuda, name):
     x, fused, y = cuda_case(name, cuda)
-    torch.backends.cudnn.allow_tf32 = False
     plain = FR.run_stage_reference(torch.as_tensor(x, device=cuda), fused)
     assert_close_to_kernel_bar(y.float().cpu().numpy(),
                                plain.float().cpu().numpy(), name)
+
+
+# name: (n blocks, (B, H, W, C_in), C_mid, C_out, input seed, weight
+# seed): the widths the narrow kernel refused -- ResNet-50's stage 3 and 4
+# tails at a small batch, and channel counts off a multiple of 8
+WIDE_CASES = {
+    "stage3_cmid256": (2, (2, 14, 14, 1024), 256, 1024, 1, 2),
+    "stage4_cmid512": (2, (2, 7, 7, 2048), 512, 2048, 3, 4),
+    "cmid256_downsample": (1, (2, 14, 14, 512), 256, 1024, 9, 10),
+    "cmid256_56x56": (1, (1, 56, 56, 1024), 256, 1024, 11, 12),
+    "ragged_20_10_20": (2, (2, 9, 11, 20), 10, 20, 5, 6),
+    "downsample_12_to_20": (1, (1, 8, 8, 12), 5, 20, 7, 8),
+}
+# Kernel launches a bottleneck: one where a block's shared memory holds h1
+# and h2 of a band (C_mid 256 at 14^2 without a downsample), two where h2
+# goes through device memory (C_mid 512; C_mid 256 with a downsample or at
+# 56^2).
+WIDE_LAUNCHES = {"stage3_cmid256": 1, "stage4_cmid512": 2,
+                 "cmid256_downsample": 2, "cmid256_56x56": 2,
+                 "ragged_20_10_20": 1, "downsample_12_to_20": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(WIDE_CASES))
+def test_cuda_wide_and_ragged_widths_match_plain(cuda, name):
+    """run_stage on the card at C_mid 256 and 512 (the wide route, in one
+    launch a bottleneck or two) and at C_in, C_out off a multiple of 8 (x
+    padded, y sliced): every block within the kernel's bar of the plain
+    version (run_stage_reference)."""
+    n, shape, c_mid, c_out, xseed, wseed = WIDE_CASES[name]
+    rng = np.random.default_rng(wseed)
+    blocks, c_in = [], shape[-1]
+    for _ in range(n):
+        blk = thmr.Bottleneck(c_in, c_mid, 1)
+        if c_out != 4 * c_mid:          # other widths than 4 C_mid
+            blk.conv3 = torch.nn.Conv2d(c_mid, c_out, 1, bias=False)
+            blk.bn3 = torch.nn.BatchNorm2d(c_out)
+            blk.downsample = None if c_in == c_out else torch.nn.Sequential(
+                torch.nn.Conv2d(c_in, c_out, 1, bias=False),
+                torch.nn.BatchNorm2d(c_out))
+        blocks.append(blk)
+        c_in = c_out
+    chain = torch.nn.Sequential(*blocks).eval()
+    with torch.no_grad():
+        for t in list(chain.parameters()) + [b for b in chain.buffers()
+                                             if b.dtype.is_floating_point]:
+            t.copy_(torch.as_tensor(rng.uniform(0.02, 0.1, tuple(t.shape))))
+    fused = FR.fuse_stage(chain, list(range(n))).to(cuda)
+    x = torch.as_tensor(np.random.default_rng(xseed).normal(
+        size=shape).astype(np.float32), device=cuda)
+    per_block = WIDE_LAUNCHES[name]
+    h = x.to(torch.bfloat16)
+    for blk in fused.blocks():
+        one = FR.FusedStage(*blk, *[getattr(fused, f)
+                                    for f in FR.FIELDS[8:]], n_rest=0)
+        before = native.LAUNCHES["fused_stage"]
+        got = FR.run_stage(h, one)
+        torch.cuda.synchronize()
+        assert native.LAUNCHES["fused_stage"] == before + per_block
+        h = FR.run_stage_reference(h, one)
+        assert got.shape == h.shape and got.dtype == torch.bfloat16
+        assert_close_to_kernel_bar(got.float().cpu().numpy(),
+                                   h.float().cpu().numpy(), name)
+    y = FR.run_stage(x, fused)
+    assert tuple(y.shape) == shape[:3] + (c_out,) and y.is_contiguous()
 
 
 @pytest.mark.cuda

@@ -19,6 +19,12 @@ Tolerances:
     stack), and the depth rebuilt from the key likewise;
   * a rare edge pixel may flip between the two summation orders: none is
     allowed on these scenes.
+The kernel's own algorithm (the warp rejection and the split of a tile's
+chunks over a cluster of blocks) is held here through its torch emulation:
+the rejection is conservative on slivers, tile and warp borders, sentinels
+and the wrapped-key table (no rejected pair of a face and a warp holds a
+pixel that passes the inside test), and the emulated walk equals the plain
+version bit for bit.
 The CUDA kernel runs only on a GPU: its test skips here and runs on the
 card with
 ``python -m pytest --noconftest -p no:cacheprovider -k cuda tests/test_torch_tiled_raster.py``.
@@ -101,15 +107,184 @@ def test_bin_fused_batched_equals_per_frame():
             assert torch.equal(x[i], y[0])
 
 
-def piled_scene():
-    """400 faces piled on one tile: 13 chunks of 32 (after the piled
-    scene of tests/test_pallas_raster.py)."""
+def piled_scene(n_faces=400):
+    """``n_faces`` faces piled on one tile (after the piled scene of
+    tests/test_pallas_raster.py): 13 chunks of 32 at 400; at 1200, 38 of
+    32 and 10 of 128, more chunks than the blocks of a cluster."""
     rng = np.random.default_rng(3)
-    v = np.stack([rng.uniform(4, 100, 1200), rng.uniform(1, 6, 1200),
-                  rng.uniform(1, 2, 1200)], 1).astype(np.float32)
-    f = np.arange(1200).reshape(400, 3).astype(np.int32)
-    a = rng.uniform(size=(1200, 3)).astype(np.float32)
+    V = 3 * n_faces
+    v = np.stack([rng.uniform(4, 100, V), rng.uniform(1, 6, V),
+                  rng.uniform(1, 2, V)], 1).astype(np.float32)
+    f = np.arange(V).reshape(n_faces, 3).astype(np.int32)
+    a = rng.uniform(size=(V, 3)).astype(np.float32)
     return v, f, a
+
+
+def sliver_scene(n_faces=80, seed=11):
+    """Long thin triangles, 5-40 pixels long and 1e-3 to 0.5 pixels wide,
+    at random angles."""
+    rng = np.random.default_rng(seed)
+    p0 = np.stack([rng.uniform(0, W, n_faces), rng.uniform(0, H, n_faces)], 1)
+    ang = rng.uniform(0, 2 * np.pi, n_faces)
+    d = np.stack([np.cos(ang), np.sin(ang)], 1)
+    nrm = np.stack([-d[:, 1], d[:, 0]], 1)
+    length = rng.uniform(5, 40, n_faces)[:, None]
+    width = 10 ** rng.uniform(-3, np.log10(0.5), n_faces)[:, None]
+    p1 = p0 + length * d
+    p2 = p0 + rng.uniform(0, 1, (n_faces, 1)) * length * d + width * nrm
+    xy = np.stack([p0, p1, p2], 1).reshape(-1, 2)
+    z = rng.uniform(1, 5, (xy.shape[0], 1))
+    v = np.concatenate([xy, z], 1).astype(np.float32)
+    f = np.arange(3 * n_faces).reshape(n_faces, 3).astype(np.int32)
+    a = rng.uniform(size=(3 * n_faces, 3)).astype(np.float32)
+    return v, f, a
+
+
+def border_scene(n_faces=120, seed=12):
+    """Triangles whose corners sit on tile and warp borders (x = 32 k,
+    y = 4 k, 8 k) and on pixel centres, so that edges run along the borders
+    of the kernels' warp rectangles and through pixel centres."""
+    rng = np.random.default_rng(seed)
+    xs = np.array([0, 0.5, 31.5, 32, 32.5, 63.5, 64, 64.5, 95.5, 96, 96.5,
+                   127.5, 128])
+    ys = np.array([0, 0.5, 3.5, 4, 4.5, 7.5, 8, 8.5, 11.5, 12, 15.5, 16,
+                   23.5, 24])
+    xy = np.stack([rng.choice(xs, 3 * n_faces), rng.choice(ys, 3 * n_faces)],
+                  1)
+    z = rng.uniform(1, 5, (3 * n_faces, 1))
+    v = np.concatenate([xy, z], 1).astype(np.float32)
+    f = np.arange(3 * n_faces).reshape(n_faces, 3).astype(np.int32)
+    a = rng.uniform(size=(3 * n_faces, 3)).astype(np.float32)
+    return v, f, a
+
+
+def wrapped_key_table():
+    """The toy table of test_wrapped_key_parity: sentinels everywhere, one
+    face whose edge functions are the constant 1 (a = b = 0) on tile 0."""
+    table = np.zeros((1, T, TR.CF_FUSED, 6, 3), np.float32)
+    table[..., 0:3, 2] = -1.0
+    table[0, 0, 0, 0:3, 2] = 1.0
+    table[0, 0, 0, 3, 2] = 2.0 ** 26
+    table[0, 0, 0, 4, 2] = 5.0
+    cstarts = np.arange(T + 1, dtype=np.int32)[None]
+    return table, cstarts
+
+
+REJECTION_SCENES = {
+    "random": lambda: scene(40, 12, 4, n_chan=3),
+    "slivers": sliver_scene,
+    "tile_borders": border_scene,
+    "heavy": lambda: piled_scene(),
+}
+
+
+def rejection_pairs(edges):
+    """edges (N, 3, 3) float32 -> (rejected (N, 8), reached (N, 8)): the
+    kernels' rejection of each face for each warp rectangle, and whether
+    some pixel of the rectangle passes the plain inside test."""
+    px, py = TR._pixel_coords(edges.device)
+    inside = torch.ones((edges.shape[0], TR.LP), dtype=torch.bool)
+    for k in range(3):
+        inside &= TR._affine(edges[:, k], px, py) >= -TR.EPS
+    # pixels row-major (8 x 128) -> (warp row, y, warp column, x)
+    reached = inside.reshape(-1, 2, 4, 4, 32).any(dim=4).any(dim=2) \
+        .reshape(-1, TR.N_WARPS)
+    rejected = TR.warp_rejects(edges[:, None], TR.warp_rects())
+    return rejected, reached
+
+
+@pytest.mark.parametrize("case", list(REJECTION_SCENES) + ["sentinels",
+                                                           "wrapped_key"])
+def test_warp_rejection_is_conservative(case):
+    """No (face, warp) pair that the kernel skips holds a pixel that passes
+    the plain inside test, on every slot of the binned table (sentinels
+    included); and the test is not vacuous: it skips most pairs of faces
+    that reach the tile."""
+    if case == "wrapped_key":
+        table, _ = wrapped_key_table()
+        table = t(table)
+    else:
+        v, f, a = REJECTION_SCENES["random" if case == "sentinels" else case]()
+        table = TR._bin_fused(t(v)[None], t(f), t(a)[None], H, W, MAXC, 2,
+                              5)[0]
+    edges = table[0, ..., 0:3, :].reshape(-1, 3, 3)
+    rejected, reached = rejection_pairs(edges)
+    assert not (rejected & reached).any(), case
+    sentinel = ((edges[:, :, 0] == 0) & (edges[:, :, 1] == 0)
+                & (edges[:, :, 2] == -1)).all(dim=1)
+    assert rejected[sentinel].all()
+    if case == "wrapped_key":
+        assert not rejected[0].any() and reached[0].all()
+        assert rejected[1:].all()
+    else:
+        real = ~sentinel
+        assert sentinel.any() and real.sum() > 20
+        # a face reaches few of a tile's 8 warps
+        assert rejected[real].float().mean() > 0.4, case
+
+
+def test_warp_rejection_margin_on_adversarial_planes():
+    """Random edge functions of every scale (|a|, |b| from 1e-6 to 1e6)
+    placed so that a random pixel centre of a random warp sits within a few
+    roundings of the inside threshold -1e-7: no rejected pair holds a pixel
+    that passes the plain test, and the corner test still rejects many."""
+    rng = np.random.default_rng(21)
+    n = 20000
+    mag = 10.0 ** rng.uniform(-6, 6, (n, 2))
+    ab = (mag * rng.choice([-1.0, 1.0], (n, 2))).astype(np.float32)
+    ab[rng.random(n) < 0.1, 0] = 0.0
+    ab[rng.random(n) < 0.1, 1] = 0.0
+    pix = rng.integers(0, TR.LP, n)
+    pxv = (pix % TR.TILE_W + 0.5).astype(np.float32)
+    pyv = (pix // TR.TILE_W + 0.5).astype(np.float32)
+    plane = (ab[:, 0] * pxv + ab[:, 1] * pyv).astype(np.float32)
+    ulp = np.spacing(np.abs(plane).astype(np.float32)).astype(np.float32)
+    shift = rng.integers(-4, 5, n).astype(np.float32) * ulp \
+        + np.float32(-1e-7) * rng.uniform(0.5, 1.5, n).astype(np.float32)
+    c = (-plane + shift).astype(np.float32)
+    # the other two edges: always 1, so only this one decides
+    edges = np.zeros((n, 3, 3), np.float32)
+    edges[:, 0, :2] = ab
+    edges[:, 0, 2] = c
+    edges[:, 1:, 2] = 1.0
+    rejected, reached = rejection_pairs(t(edges))
+    assert not (rejected & reached).any()
+    assert reached.any(dim=1).float().mean() > 0.3      # near the threshold
+    assert rejected.float().mean() > 0.3
+
+
+@pytest.mark.parametrize("case,ranks", [("heavy", 2), ("heavy", 1),
+                                        ("slivers", 2), ("random", 2),
+                                        ("tile_borders", 1)])
+def test_emulated_kernel_equals_plain_bit_for_bit(case, ranks):
+    """The kernel's algorithm, emulated in torch: ``ranks`` blocks split a
+    tile's chunks, warps skip the faces the rejection drops, and the
+    blocks' keys combine per pixel; win and attributes equal the plain
+    version (one walk over every chunk, every pixel) bit for bit."""
+    v, f, a = piled_scene(1200) if case == "heavy" else \
+        REJECTION_SCENES[case]()
+    vb = t(np.stack([v, v + np.float32([3.0, 1.0, 0.0])]))
+    ab = t(np.stack([a, a]))
+    table, cstarts, nvalid, _, meta = TR._bin_fused(vb, t(f), ab, H, W,
+                                                    8 * T, 2, 5)
+    per_tile = (cstarts[:, 1:] - cstarts[:, :-1]).max().item()
+    if case == "heavy":
+        assert per_tile > ranks          # more chunks than blocks
+    fb, dl = meta["fb"], meta["depth_levels"]
+    win, attr = TR.fused_raster_reference(table, cstarts, H, W, fb, dl)
+    ewin, eattr = TR.fused_raster_emulated(table, cstarts, H, W, fb, dl,
+                                           ranks)
+    assert torch.equal(win, ewin)
+    assert torch.equal(attr, eattr)
+    assert int((win != TR.INT32_MAX).sum()) > 100
+
+
+def test_cluster_size_follows_the_launch():
+    """Clusters of 2 blocks a tile for a launch of few tiles (one 1024^2
+    frame), 1 for many (8 frames), with the threshold between."""
+    assert TR.cluster_for(1024) == 2 and TR.cluster_for(8 * 1024) == 1
+    assert TR.cluster_for(TR.CLUSTER_TILES) == 2
+    assert TR.cluster_for(TR.CLUSTER_TILES + 1) == 1
 
 
 def test_bin_fused_overflow_matches():
@@ -278,6 +453,33 @@ def cuda():
         pytest.skip("needs a CUDA GPU: the fused_raster kernel has no CPU "
                     "mode; chip_smoke.py runs this comparison on the card")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["heavy", "slivers", "tile_borders"])
+@pytest.mark.parametrize("cluster", [1, 2])
+def test_cuda_kernel_heavy_tile_and_slivers(cuda, case, cluster):
+    """A tile with 38 chunks (more than the blocks of a cluster), slivers
+    and border-aligned faces, at each cluster size: equal to the plain
+    version at every pixel of win, attributes within 1e-6."""
+    from tpubody_torch import native
+
+    v, f, a = piled_scene(1200) if case == "heavy" else \
+        REJECTION_SCENES[case]()
+    vb = torch.as_tensor(np.stack([v, v + np.float32([3.0, 1.0, 0.0])]),
+                         device=cuda)
+    ab = torch.as_tensor(np.stack([a, a]), device=cuda)
+    table, cstarts, _, _, meta = TR._bin_fused(
+        vb, torch.as_tensor(f, device=cuda), ab, H, W, 8 * T, 2, 5)
+    fb, dl = meta["fb"], meta["depth_levels"]
+    before = native.LAUNCHES["fused_raster"]
+    win, attr = TR._fused_raster_launch(table, cstarts, H, W, fb, dl, cluster)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["fused_raster"] == before + 1
+    win_p, attr_p = TR.fused_raster_reference(table, cstarts, H, W, fb, dl)
+    assert torch.equal(win, win_p)
+    assert (attr - attr_p).abs().max().item() <= 1e-6 * attr_p.abs().max().item()
+    assert int((win != TR.INT32_MAX).sum()) > 100
 
 
 @pytest.mark.cuda

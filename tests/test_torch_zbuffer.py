@@ -33,7 +33,9 @@ from tpubody_torch.render import raster as raster_lib
 from tpubody_torch.render import tiled_raster as TR
 
 from tests.test_torch_raster import scene
-from tests.test_torch_tiled_raster import assert_keys_agree, piled_scene
+from tests.test_torch_tiled_raster import (REJECTION_SCENES,
+                                           assert_keys_agree, piled_scene,
+                                           rejection_pairs)
 
 torch.set_num_threads(1)
 
@@ -224,12 +226,91 @@ def test_wrapped_key_parity():
     assert int(z[0, 8, 0]) == TR.INT32_MAX
 
 
+ZB_SCENES = {**REJECTION_SCENES, "heavy": lambda: piled_scene(1200)}
+
+
+@pytest.mark.parametrize("case", ["heavy", "slivers", "tile_borders"])
+def test_warp_rejection_is_conservative(case):
+    """On the dense z-buffer table (128-face chunks, sentinel tails): no
+    (face, warp) pair that the kernel skips holds a pixel that passes the
+    plain inside test; every sentinel slot is skipped."""
+    v, f, _ = ZB_SCENES[case]()
+    tab, n, _ = TR.bin_faces(t(v)[None], t(f), H, W, 10)
+    edges = tab[0, ..., 0:3 * TR.CF, 0:3].reshape(T, -1, 3, TR.CF, 3) \
+        .permute(0, 1, 3, 2, 4).reshape(-1, 3, 3)
+    rejected, reached = rejection_pairs(edges)
+    assert not (rejected & reached).any(), case
+    sentinel = ((edges[:, :, 0] == 0) & (edges[:, :, 1] == 0)
+                & (edges[:, :, 2] == -1)).all(dim=1)
+    assert rejected[sentinel].all() and sentinel.any()
+    assert rejected[~sentinel].float().mean() > 0.4
+
+
+@pytest.mark.parametrize("case,ranks", [("heavy", 2), ("heavy", 1),
+                                        ("slivers", 2)])
+def test_emulated_kernel_equals_plain_bit_for_bit(case, ranks):
+    """The kernel's algorithm, emulated in torch (``ranks`` blocks split a
+    tile's chunks, warps skip the faces the rejection drops, block 0 takes
+    the minimum of the blocks' keys): equal to the plain version bit for
+    bit, on a tile of 10 chunks (more than the blocks) and on slivers."""
+    v, f, _ = ZB_SCENES[case]()
+    fb = raster_lib._face_bits(f.shape[0])
+    dl = 1 << (31 - fb)
+    vb = t(np.stack([v, v + np.float32([3.0, 1.0, 0.0])]))
+    tab, n, ov = TR.bin_faces(vb, t(f), H, W, 10)
+    assert int(ov.sum()) == 0
+    if case == "heavy":
+        assert int(n.max()) == 10 > ranks
+    want = TR.zbuffer_reference(tab, n, H, W, fb, dl)
+    got = TR.zbuffer_emulated(tab, n, H, W, fb, dl, ranks)
+    assert torch.equal(got, want)
+    assert int((want != TR.INT32_MAX).sum()) > 100
+
+
+def test_emulated_kernel_keeps_the_wrapped_key():
+    """The wrapped-key toy table through the emulated kernel (a face whose
+    edges are the constant 1 is kept by every warp)."""
+    fb, dl = 6, 1 << 25
+    table = np.zeros((1, T, 1, 5 * TR.CF, 4), np.float32)
+    table[..., :3 * TR.CF, 2] = -1.0
+    table[0, 0, 0, [0, TR.CF, 2 * TR.CF], 2] = 1.0
+    table[0, 0, 0, 3 * TR.CF, 2] = 2.0 ** 26
+    table[0, 0, 0, 4 * TR.CF, 2] = 5.0
+    n = np.ones((1, T), np.int32)
+    for ranks in (1, 2):
+        z = TR.zbuffer_emulated(t(table), t(n), H, W, fb, dl, ranks)
+        assert torch.equal(z, TR.zbuffer_reference(t(table), t(n), H, W, fb,
+                                                   dl))
+    assert int(z[0, 0, 0]) == np.iinfo(np.int32).min + 5
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the zbuffer kernel has no CPU mode; "
                     "chip_smoke.py runs this comparison on the card")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["heavy", "slivers", "tile_borders"])
+@pytest.mark.parametrize("cluster", [1, 2])
+def test_cuda_kernel_heavy_tile_and_slivers(cuda, case, cluster):
+    """A tile of 10 chunks (more than the blocks of a cluster), slivers and
+    border-aligned faces, at each cluster size: equal to the plain version
+    at every pixel."""
+    v, f, _ = ZB_SCENES[case]()
+    fb = raster_lib._face_bits(f.shape[0])
+    dl = 1 << (31 - fb)
+    vb = torch.as_tensor(np.stack([v, v + np.float32([3.0, 1.0, 0.0])]),
+                         device=cuda)
+    tab, n, _ = TR.bin_faces(vb, torch.as_tensor(f, device=cuda), H, W, 10)
+    before = native.LAUNCHES["zbuffer"]
+    z = TR._zbuffer_launch(tab, n, H, W, fb, dl, cluster)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["zbuffer"] == before + 1
+    assert torch.equal(z, TR.zbuffer_reference(tab, n, H, W, fb, dl))
+    assert int((z != TR.INT32_MAX).sum()) > 100
 
 
 @pytest.mark.cuda

@@ -32,7 +32,10 @@ TARGET_FPS = 1000.0   # BASELINE.json's frames/sec target
 # The stride-1 bottleneck chains of ResNet-50 at a 224^2 input: (block
 # indices, features, height = width, input channels).  Stage 2's block 0
 # is stride-2 and stays with the library.
-STAGE_SHAPES = {1: ((0, 1, 2), 64, 56, 64), 2: ((1, 2, 3), 128, 28, 512)}
+# ResNet-50's stride-1 chains: (block ids, features, size, input channels)
+STAGE_SHAPES = {1: ((0, 1, 2), 64, 56, 64), 2: ((1, 2, 3), 128, 28, 512),
+                3: ((1, 2, 3, 4, 5), 256, 14, 1024),
+                4: ((1, 2), 512, 7, 2048)}
 BACKBONE_PARTS = ("stem", "layer1", "layer2", "layer3", "layer4", "pool")
 
 
@@ -190,7 +193,9 @@ def fused_stage(stage: int = 1, batch: int = BATCH, iters: int = 20,
                 device: DeviceLike = "cuda") -> dict:
     """The fused residual stage against the library's bf16 chain at the
     flagship's shapes (stage 1: blocks 0-2, 64 features, 56^2, 64 input
-    channels; stage 2: blocks 1-3, 128 features, 28^2, 512 input channels).
+    channels; stage 2: blocks 1-3, 128 features, 28^2, 512 input channels;
+    stage 3: blocks 1-5, 256 features, 14^2, 1024; stage 4: blocks 1-2, 512
+    features, 7^2, 2048).
     ``what``: "parity" (relative error max |d| / max |ref| on 2 images
     against the library chain), "fused" (``fused_ms``), "library"
     (``library_ms``), or "both" (all three); times are CUDA-event ms a run
@@ -282,7 +287,8 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=BATCH)
     ap.add_argument("--iters", type=int, default=ITERS)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--fused-stage", type=int, choices=(1, 2), default=None,
+    ap.add_argument("--fused-stage", type=int, choices=tuple(STAGE_SHAPES),
+                    default=None,
                     help="measure the fused residual stage instead")
     ap.add_argument("--blocks", type=int, default=0,
                     help="fuse only the first N blocks (0 = whole chain)")

@@ -7,9 +7,13 @@
 There is no kernel profiler on every machine, so this is the coarse
 substitute: the kernel's source carries inert ``#ifdef ABLATE_*`` hooks,
 one shared library is built per variant with nvcc (all at once, each with
-its macros defined), and each is timed with CUDA events at the three bottleneck shapes of the flagship
-backbone at batch 512.  A variant computes wrong values by design; only
-its time is read.  Variants: the kernel as it is; no tensor-core
+its macros defined), and each is timed with CUDA events at the five
+stride-1 bottleneck shapes of the flagship backbone at batch 512.  A variant computes wrong values by design; only
+its time is read.  Stages 3 and 4 (C_mid 256, 512) take the wide route:
+one launch a bottleneck at stage 3, two at stage 4 (timed together).
+Variants: the kernel as it is; the wide route in two launches everywhere
+(h2 through device memory; this one computes the right values); no
+tensor-core
 products (wgmma); no A fragment loads (ldmatrix) either; no loads of x;
 no loads of the weights (the ring still turns); no final epilogue
 (residual read and store of y); each of the three convolutions alone;
@@ -33,6 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 VARIANTS = {
     "as it is": [],
+    "wide in two launches": ["ABLATE_WIDE_SPLIT"],
     "no mma": ["ABLATE_MMA"],
     "no mma, no ldmatrix": ["ABLATE_MMA", "ABLATE_FRAGMENTS"],
     "no x loads": ["ABLATE_X_LOADS"],
@@ -51,6 +56,8 @@ SHAPES = [
     ("stage 1 block 0: 64-64-256, 56^2, downsample", (512, 56, 56, 64, 64, 256), True),
     ("stage 1 blocks 1-2: 256-64-256, 56^2", (512, 56, 56, 256, 64, 256), False),
     ("stage 2 blocks 1-3: 512-128-512, 28^2", (512, 28, 28, 512, 128, 512), False),
+    ("stage 3 blocks 1-5: 1024-256-1024, 14^2", (512, 14, 14, 1024, 256, 1024), False),
+    ("stage 4 blocks 1-2: 2048-512-2048, 7^2", (512, 7, 7, 2048, 512, 2048), False),
 ]
 
 
@@ -70,7 +77,7 @@ def build() -> dict:
             raise RuntimeError(f"nvcc failed for {name!r}:\n{log}")
         dll = ctypes.CDLL(lib)
         dll.tpubody_fused_stage_block.argtypes = \
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         dll.tpubody_fused_stage_block.restype = ctypes.c_int
         libs[name] = dll
     return libs
@@ -94,6 +101,10 @@ def main() -> int:
     for what, (B, H, W, cin, cmid, cout), down in SHAPES:
         x = rand(B, H, W, cin)
         y = torch.empty(B, H, W, cout, dtype=torch.bfloat16, device=dev)
+        # h2 of the wide route (C_mid above 128: two launches a bottleneck)
+        h2 = (torch.empty(B * H * W, -(-cmid // 64) * 64,
+                          dtype=torch.bfloat16, device=dev)
+              if cmid > 128 else None)
         # the packed, zero-padded sizes (models/fused_resnet.py _pack_block)
         pm, pi, po = (-(-c // 64) * 64 for c in (cmid, cin, cout))
         w = [rand(pm * pi), rand(pm, dtype=torch.float32),
@@ -106,8 +117,8 @@ def main() -> int:
         for name, lib in libs.items():
             def call():
                 err = lib.tpubody_fused_stage_block(
-                    ptr(x), ptr(y), *[ptr(t) for t in w], B, H, W, cin, cmid,
-                    cout, stream)
+                    ptr(x), ptr(y), ptr(h2), *[ptr(t) for t in w], B, H, W,
+                    cin, cmid, cout, stream)
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err}")
             try:

@@ -1,6 +1,6 @@
 // fused_raster: tiled triangle rasterization fused with attribute
-// interpolation, one thread block per (frame, 8x128-pixel tile), for
-// Hopper (sm_90a).
+// interpolation, one cluster of thread blocks per (frame, 8x128-pixel
+// tile), for Hopper (sm_90a).
 //
 // Replaces: tpubody/render/pallas_raster.py::_fused_kernel (the Pallas TPU
 // kernel behind tpubody.render.pallas_raster.render_attrs_tiled, launched
@@ -36,47 +36,65 @@
 // in the Pallas kernel.
 //
 // What bounds it on an H100 SXM (data sheet: 3.35 TB/s HBM, 67 TFLOP/s
-// fp32): per face and pixel it evaluates three edge functions (3 x (1 mul
-// + 2 add), the a * px products shared by a thread's four pixels) and
-// three comparisons, about 13 operations; a chunk of 32 faces is 3 KB of
-// table.  For a chunk that is 32 x 1024 x 13 = 0.43 MFLOP against 3 KB,
-// so the kernel is bound by operations, not bytes; the output planes
-// ((1 + C) x 4 bytes per pixel) are the larger share of its bytes.
+// fp32): the output planes, (1 + C) x 4 bytes a pixel of every frame, and
+// the table's real chunks, read once: 156 MB for the video's base pass
+// (B = 8, 1024^2, C = 3), 0.047 ms.  The operations that these inputs need
+// are the pairs of a face and a pixel that the face's triangle can reach:
+// evaluating every pair of a tile (32 faces x 1,024 pixels a chunk, about
+// 13 operations each) would take 0.046 ms at the fp32 rate, and twice that
+// as the instructions issue, because the arithmetic is unfused by design
+// (the 67 TFLOP/s count a fused multiply-add as two operations).  So the
+// design must evaluate fewer pairs.
 //
-// What the design does about it: 256 threads per tile, four pixels each;
-// consecutive threads are consecutive in x, so every store of win and of
-// an attribute plane is a coalesced 512-byte row segment.  Per chunk the
-// block copies the 15 edge/depth/fid coefficients of each face into shared
-// memory and every thread walks the faces reading them as broadcasts; it
-// keeps the running minimum key and its owner (chunk, lane) in registers.
-// Depth and key are computed only for covered pixels.  The winner's
-// attribute planes are evaluated ONCE, after the loop, from the owner's
-// coefficients in global memory (3 * C contiguous floats): evaluating on
-// every improvement of the key would also be right, but costs C planes per
-// improvement instead of per pixel, and attribute work would scale with
-// depth complexity.  An empty tile writes INT32_MAX and zeros and leaves.
-// Double-buffered copies (cp.async / TMA), several tiles per block and
-// balancing full against empty tiles are left for later.
+// What the design does about it:
+//   * Warp-level rejection.  Each of the 8 consumer warps owns a 32 x 4
+//     pixel rectangle of the tile (raster_common.cuh).  Per chunk, lane l
+//     of a warp tests face l against the warp's rectangle (edge_fails: the
+//     corner maximum of each edge function, with a rounding margin derived
+//     there), and one ballot gives the faces that can touch the warp; the
+//     warp evaluates only those, in a warp-uniform loop.  A face binned to
+//     a tile typically reaches one or two of its eight warps; sentinel
+//     slots never reach any.  Rejection skips only pairs whose pixels all
+//     fail the inside test, so no key changes.
+//   * Whole chunks by cp.async.bulk.  A chunk is contiguous (CF x G x 3
+//     floats); one producer lane copies it into a ring of 2-4 slots with an
+//     mbarrier pair each, so chunk i + 1.. land while chunk i is evaluated.
+//   * Heavy tiles split across a thread-block cluster.  The blocks of a
+//     cluster share a tile; block r walks the tile's chunks r, r + k, ...
+//     (k blocks a cluster), keeping per pixel its minimum key and owner.
+//     Then every block publishes its keys in shared memory, and after a
+//     cluster barrier each block reads the others' (distributed shared
+//     memory): the block whose key is the minimum writes the pixel, its
+//     key and its attributes (block 0 writes pixels that no face covers).
+//     A key names its face, which occurs once in a tile's list, so exactly
+//     one block holds the minimum, and the minimum does not depend on the
+//     order of the walk: the same bits as one block walking every chunk.
+//   * The epilogue evaluates the winner's attribute planes once a pixel,
+//     from the chunk in the ring where it still is (always, when a block
+//     walks at most as many chunks as the ring has slots), or else from
+//     the table in device memory.
+// An empty tile (85% of the video's base pass) takes a short path: its
+// block 0 writes INT32_MAX and zeros, and every block of its cluster
+// leaves without setting up the ring or waiting at a cluster barrier.
 //
 // The wrapper allocates the outputs; the kernel runs on the caller's
 // stream, allocates nothing, synchronises nothing, and the entry point
-// returns cudaGetLastError().
-#include <cuda_runtime.h>
-#include <limits.h>
+// returns the launch's error.
+//
+// Timing builds: ablate_raster.py compiles this file with one ABLATE_*
+// macro each, which takes a part out: the rejection (every face reaches
+// every warp), the evaluation of the faces that pass it, the bulk copies
+// (the ring still turns), or the epilogue's stores.  Such a build computes
+// wrong values by design and only its time is read.  With no macro
+// defined, the #if lines below change nothing.
+#include "raster_common.cuh"
 
 namespace {
 
-constexpr int kTileH = 8;
-constexpr int kTileW = 128;
-constexpr int kThreads = 256;             // 2 rows of 128 pixels
-constexpr int kPix = kTileH / 2;          // pixels per thread: rows r, r+2, ..
-constexpr int kHead = 15;                 // e0, e1, e2, zq, fid x (a, b, c)
-constexpr float kNegEps = -1e-7f;
+using namespace raster;
+namespace cg = cooperative_groups;
 
-__device__ __forceinline__ float affine(float ax, float b, float c, float py) {
-  // (a * px + b * py) + c with ax = a * px already rounded.
-  return __fadd_rn(__fadd_rn(ax, __fmul_rn(b, py)), c);
-}
+constexpr int kHead = 15;                 // e0, e1, e2, zq, fid x (a, b, c)
 
 __global__ void __launch_bounds__(kThreads)
 fused_raster_kernel(const float* __restrict__ table,  // (B, MAXC, CF, G, 3)
@@ -84,96 +102,181 @@ fused_raster_kernel(const float* __restrict__ table,  // (B, MAXC, CF, G, 3)
                     int* __restrict__ win,            // (B, H, W)
                     float* __restrict__ attr,         // (B, C, H, W)
                     int H, int W, int MAXC, int CF, int C, int fb,
-                    float zcap) {
-  extern __shared__ float coef[];                     // CF * kHead
+                    float zcap, int stages) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
   const int TX = W / kTileW;
   const int T = TX * (H / kTileH);
-  const int t = blockIdx.x;
+  const int t = blockIdx.x / ranks;
   const int b = blockIdx.y;
   const int c_begin = starts[(size_t)b * (T + 1) + t];
   const int c_end = starts[(size_t)b * (T + 1) + t + 1];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int lx = 32 * (warp & 3) + lane;
+  const int ly = 4 * (warp >> 2);
+  const int x = (t % TX) * kTileW + lx;
+  const int y0 = (t / TX) * kTileH + ly;
+  const size_t plane = (size_t)H * W;
+  if (c_end <= c_begin) {
+    // An empty tile (most of them): block 0 writes INT32_MAX and zeros,
+    // every block of the cluster leaves at once (no barrier is waited for).
+    if (rank == 0 && warp < kConsumers / 32)
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        const size_t pix = (size_t)(y0 + k) * W + x;
+        win[(size_t)b * plane + pix] = INT_MAX;
+        for (int ch = 0; ch < C; ++ch)
+          attr[((size_t)b * C + ch) * plane + pix] = 0.0f;
+      }
+    return;
+  }
+  const int n = rank_chunks(c_begin, c_end, rank, ranks);
   const int row = 3 * (5 + C);                        // floats per face
-  const float* tab = table + (size_t)b * MAXC * CF * row;
+  const int chunk = CF * row;                         // floats per chunk
+  const float* tab = table + (size_t)b * MAXC * chunk;
+  auto chunk_at = [&](int i) {                        // i-th of this block
+    return tab + (size_t)(c_begin + rank + i * ranks) * chunk;
+  };
+  Ring ring;
+  ring.base = smem_u32(smem);
+  ring.stages = stages;
+  ring.bytes = chunk * 4;
+  ring.bars = ring.base + ring_bytes(ring.bytes, stages);
+  int* keys = reinterpret_cast<int*>(smem + ring_bytes(ring.bytes, stages) +
+                                     kBarBytes);
+  const float* slots = reinterpret_cast<const float*>(smem);
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
 
-  const int lx = threadIdx.x & (kTileW - 1);
-  const int ly = threadIdx.x >> 7;                    // 0 or 1
   const float px = (float)lx + 0.5f;
-  float py[kPix];
   int best[kPix];
-  int owner[kPix];
+  int owner[kPix];                                    // i * CF + face
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
-    py[k] = (float)(ly + 2 * k) + 0.5f;
     best[k] = INT_MAX;
     owner[k] = -1;
   }
 
-  for (int c = c_begin; c < c_end; ++c) {
-    __syncthreads();                 // the previous chunk has been read
-    const float* src = tab + (size_t)c * CF * row;
-    for (int i = threadIdx.x; i < CF * kHead; i += kThreads) {
-      const int f = i / kHead;
-      coef[i] = src[f * row + (i - f * kHead)];
-    }
-    __syncthreads();
-    for (int f = 0; f < CF; ++f) {
-      const float* q = coef + f * kHead;
-      const float a0x = __fmul_rn(q[0], px);
-      const float a1x = __fmul_rn(q[3], px);
-      const float a2x = __fmul_rn(q[6], px);
+  if (warp == kConsumers / 32) {
+    // ================= producer: one lane copies this block's chunks
+    if (lane == 0)
+      for (int i = 0; i < n; ++i) ring.put(i, chunk_at(i));
+  } else {
+    // ================= consumers
+    const WarpRect rect = warp_rect(warp);
+    for (int i = 0; i < n; ++i) {
+      ring.take(i);
+      const float* q0 = slots + (i % stages) * chunk;
+      for (int g0 = 0; g0 < CF; g0 += 32) {
+        const int fl = g0 + lane;
+        bool keep = false;
+        if (fl < CF) {
+          const float* q = q0 + fl * row;
+#ifdef ABLATE_REJECT
+          keep = true;
+#else
+          keep = !(edge_fails(q[0], q[1], q[2], rect) ||
+                   edge_fails(q[3], q[4], q[5], rect) ||
+                   edge_fails(q[6], q[7], q[8], rect));
+#endif
+        }
+        unsigned live = __ballot_sync(0xffffffffu, keep);
+#ifdef ABLATE_EVAL
+        if (live == 0x12345678u) best[0] = (int)live;  // keeps the test alive
+        live = 0;
+#endif
+        while (live) {
+          const int f = g0 + __ffs(live) - 1;
+          live &= live - 1;
+          const float* q = q0 + f * row;
+          const float a0x = __fmul_rn(q[0], px);
+          const float a1x = __fmul_rn(q[3], px);
+          const float a2x = __fmul_rn(q[6], px);
 #pragma unroll
-      for (int k = 0; k < kPix; ++k) {
-        const float e0 = affine(a0x, q[1], q[2], py[k]);
-        const float e1 = affine(a1x, q[4], q[5], py[k]);
-        const float e2 = affine(a2x, q[7], q[8], py[k]);
-        if (e0 >= kNegEps && e1 >= kNegEps && e2 >= kNegEps) {
-          const float zq = affine(__fmul_rn(q[9], px), q[10], q[11], py[k]);
-          const int dq = (int)fminf(fmaxf(zq, 0.0f), zcap);
-          const int key =
-              (int)(((unsigned)dq << fb) | (unsigned)(int)q[14]);
-          if (key < best[k]) {
-            best[k] = key;
-            owner[k] = c * CF + f;
+          for (int k = 0; k < kPix; ++k) {
+            const float py = (float)(ly + k) + 0.5f;
+            const float e0 = affine(a0x, q[1], q[2], py);
+            const float e1 = affine(a1x, q[4], q[5], py);
+            const float e2 = affine(a2x, q[7], q[8], py);
+            if (e0 >= kNegEps && e1 >= kNegEps && e2 >= kNegEps) {
+              const float zq = affine(__fmul_rn(q[9], px), q[10], q[11], py);
+              const int dq = (int)fminf(fmaxf(zq, 0.0f), zcap);
+              const int key =
+                  (int)(((unsigned)dq << fb) | (unsigned)(int)q[14]);
+              if (key < best[k]) {
+                best[k] = key;
+                owner[k] = i * CF + f;
+              }
+            }
           }
         }
       }
+      ring.release(i, lane);
     }
   }
 
-  const int x = (t % TX) * kTileW + lx;
-  const int y0 = (t / TX) * kTileH + ly;
-  const size_t plane = (size_t)H * W;
+  // ---- the combine: the cluster's minimum key per pixel, and its owner
+  const bool consumer = warp < kConsumers / 32;
+  if (ranks > 1) {
+    if (consumer)
 #pragma unroll
-  for (int k = 0; k < kPix; ++k) {
-    const size_t pix = (size_t)(y0 + 2 * k) * W + x;
-    win[(size_t)b * plane + pix] = best[k];
-    float* out = attr + (size_t)b * C * plane + pix;
-    if (owner[k] >= 0) {
-      const float* p = tab + (size_t)owner[k] * row + kHead;
-      for (int ch = 0; ch < C; ++ch)
-        out[(size_t)ch * plane] =
-            affine(__fmul_rn(p[3 * ch], px), p[3 * ch + 1], p[3 * ch + 2],
-                   py[k]);
-    } else {
-      for (int ch = 0; ch < C; ++ch) out[(size_t)ch * plane] = 0.0f;
+      for (int k = 0; k < kPix; ++k) keys[(ly + k) * kTileW + lx] = best[k];
+    cluster.sync();
+  }
+  if (consumer) {
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) {
+      int key = best[k];
+      for (int r = 0; r < ranks; ++r)
+        if (r != rank)
+          key = min(key, cluster.map_shared_rank(keys, r)[(ly + k) * kTileW +
+                                                          lx]);
+      const bool covered = key != INT_MAX;
+      if (covered ? best[k] != key : rank != 0) continue;
+#ifndef ABLATE_EPILOGUE
+      const size_t pix = (size_t)(y0 + k) * W + x;
+      win[(size_t)b * plane + pix] = key;
+      float* out = attr + (size_t)b * C * plane + pix;
+      if (covered) {
+        const int i = owner[k] / CF, f = owner[k] - i * CF;
+        const float* p =
+            (i >= n - stages ? slots + (i % stages) * chunk : chunk_at(i)) +
+            f * row + kHead;
+        const float py = (float)(ly + k) + 0.5f;
+        for (int ch = 0; ch < C; ++ch)
+          out[(size_t)ch * plane] =
+              affine(__fmul_rn(p[3 * ch], px), p[3 * ch + 1], p[3 * ch + 2],
+                     py);
+      } else {
+        for (int ch = 0; ch < C; ++ch) out[(size_t)ch * plane] = 0.0f;
+      }
+#endif
     }
   }
+  if (ranks > 1) cluster.sync();        // no block leaves while read
 }
 
 }  // namespace
 
-// Launches the kernel on `stream` over grid (tiles, frames) and returns
-// cudaGetLastError().  H must be a multiple of 8 and W of 128 (the wrapper
-// checks); zcap = float(depth_levels - 1).
+// Launches the kernel on `stream` over grid (tiles x cluster, frames), in
+// clusters of `cluster` blocks (1 or 2), and returns the launch's
+// error.  H must be a multiple of 8 and W of 128, the table 16-byte
+// aligned (the wrapper checks); zcap = float(depth_levels - 1).
 extern "C" int tpubody_fused_raster(const float* table, const int* starts,
                                     int* win, float* attr, int B, int H,
                                     int W, int MAXC, int CF, int C, int fb,
-                                    float zcap, cudaStream_t stream) {
+                                    float zcap, int cluster,
+                                    cudaStream_t stream) {
   if (B <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
+  if (cluster != 1 && cluster != 2)
+    return (int)cudaErrorInvalidValue;
   const int T = (W / kTileW) * (H / kTileH);
-  const dim3 grid(T, B);
-  const size_t smem = (size_t)CF * kHead * sizeof(float);
-  fused_raster_kernel<<<grid, kThreads, smem, stream>>>(
-      table, starts, win, attr, H, W, MAXC, CF, C, fb, zcap);
-  return (int)cudaGetLastError();
+  const int chunk_bytes = CF * 3 * (5 + C) * 4;
+  const int stages = ring_stages(chunk_bytes);
+  return launch_clustered(fused_raster_kernel, T, B, cluster,
+                          smem_bytes(chunk_bytes, stages), stream, table,
+                          starts, win, attr, H, W, MAXC, CF, C, fb, zcap,
+                          stages);
 }

@@ -29,8 +29,30 @@
 // Each tile is the exact image one wgmma B descriptor reads (K-major, 128
 // bytes a row, 128-byte swizzle: the 16-byte chunk c of row n lands at
 // chunk c ^ (n & 7)), so one cp.async.bulk lands it ready to use: no
-// tensor map, no libcuda call.  Output: y (B, H, W, Cout) bf16, Cout % 8 == 0.
-// Cmid_p is at most 128 (ResNet-50's stages 1 and 2: 64 and 128).
+// tensor map, no libcuda call.  Output: y (B, H, W, Cout) bf16, Cout % 8 == 0
+// (the wrapper pads x's channel axis with zeros to a multiple of 8 and
+// slices y).
+//
+// Two routes, chosen by Cmid_p and instantiated by template, so that the
+// narrow one compiles to the same code whatever the wide one does:
+//   narrow (Cmid_p <= 128: ResNet-50's stages 1 and 2), kFull: one launch a
+//     bottleneck, bands of kM = 256 positions, h1 and h2 in shared memory;
+//   wide (Cmid_p > 128: stages 3 and 4, 256 and 512), bands of kM = 128
+//     (one m64 row tile a consumer warpgroup), conv1 and conv2 in column
+//     passes of at most 128 output channels (the accumulators of one pass
+//     are those of the narrow route).  h1 over a band and its halo at
+//     C_mid 512 and a band of 256 would be 320 x 520 x 2 bytes, and h2
+//     another 266 KB: more than a block's 227 KB.  Where a band of 128
+//     holds both (C_mid 256 at 14^2, identity: 219,760 bytes), kFull runs
+//     the bottleneck in one launch; elsewhere (C_mid 512, or a downsample)
+//     it takes two: kFront keeps h1 (its rows rounded to 8, not 64) in
+//     shared memory and writes h2 to a scratch buffer in device memory
+//     (B H W, Cmid_p) bf16; kBack runs conv3 (+ the downsample) with its A
+//     read from that buffer through the x ring, moving 2 x 2 Cmid_p bytes
+//     a pixel more.  With one row tile a warpgroup, the other accumulators
+//     hold each K slice's products fresh, added to the running sums in f32
+//     (see mma_round): the long sums of the wide widths stay rounded.  h2
+//     is rounded to bf16 on every route, so all give the same bits.
 //
 // Arithmetic, which decides the bits: operands bf16, every product summed
 // in f32 (wgmma m64n64k16, bf16 in, f32 out), bias added in f32, relu, h1,
@@ -82,10 +104,11 @@
 // Timing builds: ablate_fused_stage.py compiles this file with one
 // ABLATE_* macro defined each, which takes a part out (the tensor-core
 // products, the A fragment loads, the loads of x or of the weights, the
-// last epilogue, one of the convolutions) or sets the weight ring's depth
-// (-DABLATE_SW=..).  Such a build computes wrong values by design and only
-// its time is read.  With no macro defined, the #if lines below change
-// nothing.
+// last epilogue, one of the convolutions), sets the weight ring's depth
+// (-DABLATE_SW=..) or runs the wide route in two launches wherever it
+// could take one (-DABLATE_WIDE_SPLIT).  Such a build may compute wrong
+// values and only its time is read.  With no macro defined, the #if lines
+// change nothing.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,7 +117,6 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kM = 256;                 // band positions a block
 constexpr int kThreads = 384;           // producer warpgroup + 2 consumers
 constexpr int kConsumers = 256;
 // Weight ring stages: the most of 4, 3, 2 that the shared memory holds
@@ -105,31 +127,49 @@ constexpr int kSWMax = ABLATE_SW, kSWMin = ABLATE_SW;
 #else
 constexpr int kSWMax = 4, kSWMin = 2;
 #endif
-constexpr int kSX = 3;                  // x ring stages
+constexpr int kSXMax = 3;               // x ring stages (barriers for)
 constexpr int kWBytes = 128 * 128;      // weight slice: <= 128 rows x 128 B
-constexpr int kXBytes = kM * 128;       // x slice: 256 rows x 128 B
 constexpr int kMaxSmem = 232448;        // 227 KB a block
+constexpr int kLdo = 72;                // epilogue staging row, bf16
+
+// The routes (see the head of the file).
+constexpr int kFull = 0, kFront = 1, kBack = 2;
+
+template <int kM, int kMode>
+struct Route {
+  static constexpr int kRT = kM / 128;            // m64 row tiles a warpgroup
+  static constexpr int kSX = kMode == kFront ? 2 : kSXMax;
+  static constexpr int kXBytes = kM * 128;        // x slice: kM rows x 128 B
+};
 
 __host__ __device__ inline int round64(int c) { return (c + 63) & ~63; }
 
 // Shared memory of one block, bytes from a 1024-aligned base: the two
-// rings, h1 over the band and its halo, h2 (over the x ring when there is
-// no downsample: x is then read by conv1 only), the barriers.
+// rings, then
+//   kFull:  h1 over the band and its halo, h2 (over the x ring when there
+//           is no downsample: x is then read by conv1 only);
+//   kFront: h1 only, its rows rounded up to 8 (conv1's last row tile stores
+//           only the rows that exist);
+//   kBack:  the last epilogue's staging tile (in h1's place);
+// then the barriers and the pixel of each band row.
 struct Layout {
   int sw, h1_rows, ldh, x_off, h1_off, h2_off, bar_off, pix_off, bytes;
 };
 
+template <int kM, int kMode>
 __host__ __device__ inline Layout layout_sw(int W, int cmid_p, bool down,
                                             int sw) {
+  typedef Route<kM, kMode> R;
   Layout L;
   L.sw = sw;
-  L.h1_rows = (kM + 2 * (W + 2) + 2 + 63) & ~63;
+  L.h1_rows = kMode == kFront ? (kM + 2 * (W + 2) + 2 + 7) & ~7
+                              : (kM + 2 * (W + 2) + 2 + 63) & ~63;
   L.ldh = cmid_p + 8;                   // row stride (bf16) of h1 and h2
-  const int h2_bytes = kM * L.ldh * 2;
-  const int ring_x = kSX * kXBytes;
+  const int h2_bytes = kMode == kFull ? kM * L.ldh * 2 : 0;
+  const int ring_x = R::kSX * R::kXBytes;
   L.x_off = sw * kWBytes;
   int end = L.x_off + ring_x;
-  if (down) {
+  if (down || kMode != kFull) {
     L.h2_off = end;
     end += h2_bytes;
   } else {
@@ -137,17 +177,18 @@ __host__ __device__ inline Layout layout_sw(int W, int cmid_p, bool down,
     end = L.x_off + (h2_bytes > ring_x ? h2_bytes : ring_x);
   }
   L.h1_off = end;
-  end += L.h1_rows * L.ldh * 2;
+  end += kMode == kBack ? kM * kLdo * 2 : L.h1_rows * L.ldh * 2;
   L.bar_off = (end + 7) & ~7;
-  L.pix_off = L.bar_off + 2 * (kSWMax + kSX) * 8;     // kM ints
+  L.pix_off = L.bar_off + 2 * (kSWMax + kSXMax) * 8;  // kM ints
   L.bytes = L.pix_off + kM * 4 + 1024;                // + base alignment
   return L;
 }
 
+template <int kM, int kMode>
 __host__ __device__ inline Layout layout(int W, int cmid_p, bool down) {
-  Layout L = layout_sw(W, cmid_p, down, kSWMax);
+  Layout L = layout_sw<kM, kMode>(W, cmid_p, down, kSWMax);
   for (int sw = kSWMax - 1; sw >= kSWMin && L.bytes > kMaxSmem; --sw)
-    L = layout_sw(W, cmid_p, down, sw);
+    L = layout_sw<kM, kMode>(W, cmid_p, down, sw);
   return L;
 }
 
@@ -258,15 +299,17 @@ struct Int {
   static constexpr int value = V;
 };
 
-// d (64 x 64, f32, this thread's 32) += a (64 x 16, bf16, from registers:
-// this warp's 16 rows as an mma.m16n8k16 A fragment) . B (from `desc`).
+// d (64 x 64, f32, this thread's 32) = d * accumulate + a (64 x 16, bf16,
+// from registers: this warp's 16 rows as an mma.m16n8k16 A fragment) . B
+// (from `desc`).
 __device__ __forceinline__ void wgmma_64x64(float (&d)[32],
                                             const uint32_t (&a)[4],
-                                            uint64_t desc) {
+                                            uint64_t desc,
+                                            int accumulate = 1) {
 #ifdef ABLATE_MMA
   return;
 #endif
-  // scale-d = 1 (accumulate), scale-a = scale-b = 1, B not transposed
+  // scale-d = accumulate, scale-a = scale-b = 1, B not transposed
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -280,7 +323,8 @@ __device__ __forceinline__ void wgmma_64x64(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
 }
 
 __device__ __forceinline__ void consumer_sync() {
@@ -309,23 +353,31 @@ __device__ __forceinline__ void pin(uint32_t& r) {
   asm volatile("" : "+r"(r)::"memory");
 }
 
+template <int kM, int kMode>
 __global__ void __launch_bounds__(kThreads, 1)
 bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
+                  bf16* __restrict__ h2g,
                   const bf16* __restrict__ w1, const float* __restrict__ b1,
                   const bf16* __restrict__ w2, const float* __restrict__ b2,
                   const bf16* __restrict__ w3, const float* __restrict__ b3,
                   const bf16* __restrict__ wd, const float* __restrict__ bd,
                   int B, int H, int W, int Cin, int Cmid_p, int Cout) {
+  typedef Route<kM, kMode> R;
+  constexpr int kSX = R::kSX, kXBytes = R::kXBytes, kRT = R::kRT;
+  constexpr int kAllTiles = kRT == 2 ? 3 : 1;   // mask of every row tile
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const bool down = wd != nullptr;
-  const Layout L = layout(W, Cmid_p, down);
+  const Layout L = layout<kM, kMode>(W, Cmid_p, down);
   const int Wp = W + 2;
   const int Cin_p = round64(Cin), Cout_p = round64(Cout);
   const int ks_in = Cin_p / 64, ks_mid = Cmid_p / 64;
   const int passes = (L.h1_rows + kM - 1) / kM;
   const int nchunks = (Cout_p + 127) / 128;
+  // column passes of conv1 and conv2 (one on the narrow route: two row
+  // tiles a warpgroup, C_mid <= 128)
+  const int ncols = kRT == 2 ? 1 : (Cmid_p + 127) / 128;
   const int s0 = Wp + blockIdx.x * kM;          // band row 0
   const int h0 = s0 - Wp - 1;                   // h1 row 0 (tap 0, 0)
   const uint32_t wring = smem_u32(base), xring = wring + L.x_off;
@@ -338,6 +390,8 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
   auto empty_w = [&](int i) { return bars + 8 * (kSWMax + i); };
   auto full_x = [&](int i) { return bars + 8 * (2 * kSWMax + i); };
   auto empty_x = [&](int i) { return bars + 8 * (2 * kSWMax + kSX + i); };
+  // output channels of column pass nc of conv1 / conv2 (a chunk of w1, w2)
+  auto col_rows = [&](int nc) { return min(128, Cmid_p - nc * 128); };
   if (threadIdx.x == 0) {
     for (int i = 0; i < sw; ++i) {
       mbar_init(full_w(i), 1);                   // the expect_tx arrival
@@ -354,9 +408,12 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
   if (threadIdx.x < 128) {
     // ================= producer: copies in the order the consumers take
     // them: conv1 over the band and its halo in passes of kM rows (K slices
-    // of Cin_p), conv2 over the 9 taps (K slices of Cmid_p), conv3 (+ the
-    // downsample) per chunk of up to 128 output channels.  Thread 0 starts
-    // the weights' bulk copies; the 128 threads the x slices, two rows each.
+    // of Cin_p), conv2 over the 9 taps (K slices of Cmid_p), each in column
+    // passes of up to 128 output channels; conv3 (+ the downsample) per
+    // chunk of up to 128 output channels, its A from h2 in shared memory
+    // (kFull) or from the scratch buffer through the x ring (kBack).
+    // Thread 0 starts the weights' bulk copies; the 128 threads the x
+    // slices, kM / 128 rows each.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     const int pt = threadIdx.x;
     int ws = 0, wph = 0, xs = 0, xph = 0;
@@ -373,20 +430,22 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
       if (++ws == sw) { ws = 0; wph ^= 1; }
     };
     // rows [0, nrows) of an x slice <- channels [64 ks, 64 ks + 64) of the
-    // pixels at positions s_first.., zero outside the image and past Cin;
-    // 128-byte rows, chunk c of row r at chunk c ^ (r & 7)
-    auto put_x = [&](int s_first, int nrows, int ks) {
+    // pixels at positions s_first.. of src (C channels a pixel), zero
+    // outside the image and past C; 128-byte rows, chunk c of row r at
+    // chunk c ^ (r & 7)
+    auto put_x = [&](const bf16* src, int C, int s_first, int nrows,
+                     int ks) {
       mbar_wait(empty_x(xs), xph ^ 1);
 #ifndef ABLATE_X_LOADS
       const uint32_t buf = xring + xs * kXBytes;
       for (int r = pt; r < kM; r += 128) {
         const int pix = r < nrows ? pixel_at(s_first + r, B, H, W) : -1;
-        const bf16* row = x + (size_t)(pix < 0 ? 0 : pix) * Cin;
+        const bf16* row = src + (size_t)(pix < 0 ? 0 : pix) * C;
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
           const int k = ks * 64 + c * 8;
-          const bool in = pix >= 0 && k < Cin;
-          cp_async16(buf + r * 128 + ((c ^ (r & 7)) << 4), in ? row + k : x,
+          const bool in = pix >= 0 && k < C;
+          cp_async16(buf + r * 128 + ((c ^ (r & 7)) << 4), in ? row + k : src,
                      in);
         }
       }
@@ -394,35 +453,46 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
       cp_async_arrive(full_x(xs));
       if (++xs == kSX) { xs = 0; xph ^= 1; }
     };
+    if constexpr (kMode != kBack) {
 #ifndef ABLATE_CONV1
-    for (int p = 0; p < passes; ++p)
-      for (int ks = 0; ks < ks_in; ++ks) {
-        put_w(w1 + (size_t)ks * Cmid_p * 64, Cmid_p);
-        put_x(h0 + p * kM, L.h1_rows - p * kM, ks);
-      }
+      for (int nc = 0; nc < ncols; ++nc)
+        for (int p = 0; p < passes; ++p)
+          for (int ks = 0; ks < ks_in; ++ks) {
+            put_w(w1 + ((size_t)nc * ks_in * 128 + ks * col_rows(nc)) * 64,
+                  col_rows(nc));
+            put_x(x, Cin, h0 + p * kM, L.h1_rows - p * kM, ks);
+          }
 #endif
 #ifndef ABLATE_CONV2
-    for (int tap = 0; tap < 9; ++tap)
-      for (int ks = 0; ks < ks_mid; ++ks)
-        put_w(w2 + (size_t)(tap * ks_mid + ks) * Cmid_p * 64, Cmid_p);
+      for (int nc = 0; nc < ncols; ++nc)
+        for (int tap = 0; tap < 9; ++tap)
+          for (int ks = 0; ks < ks_mid; ++ks)
+            put_w(w2 + (size_t)tap * Cmid_p * Cmid_p +
+                      ((size_t)nc * ks_mid * 128 + ks * col_rows(nc)) * 64,
+                  col_rows(nc));
 #endif
-#ifndef ABLATE_CONV3
-    for (int nc = 0; nc < nchunks; ++nc) {
-      const int rows = min(128, Cout_p - nc * 128);
-      for (int ks = 0; ks < ks_mid; ++ks)
-        put_w(w3 + ((size_t)nc * ks_mid * 128 + ks * rows) * 64, rows);
-      if (down)
-        for (int ks = 0; ks < ks_in; ++ks) {
-          put_w(wd + ((size_t)nc * ks_in * 128 + ks * rows) * 64, rows);
-          put_x(s0, kM, ks);
-        }
     }
+    if constexpr (kMode != kFront) {
+#ifndef ABLATE_CONV3
+      for (int nc = 0; nc < nchunks; ++nc) {
+        const int rows = min(128, Cout_p - nc * 128);
+        for (int ks = 0; ks < ks_mid; ++ks) {
+          put_w(w3 + ((size_t)nc * ks_mid * 128 + ks * rows) * 64, rows);
+          if constexpr (kMode == kBack) put_x(h2g, Cmid_p, s0, kM, ks);
+        }
+        if (down)
+          for (int ks = 0; ks < ks_in; ++ks) {
+            put_w(wd + ((size_t)nc * ks_in * 128 + ks * rows) * 64, rows);
+            put_x(x, Cin, s0, kM, ks);
+          }
+      }
 #endif
+    }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     return;
   }
 
-  // =================== consumers: warpgroup c owns band rows 128 c ..
+  // =================== consumers: warpgroup c owns band rows kM / 2 c ..
   asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
   const int c = (threadIdx.x >> 7) - 1;
   const int wq = (threadIdx.x >> 5) & 3;        // warp in the warpgroup
@@ -430,14 +500,16 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
   const int g = lane >> 2, t = lane & 3;
   const int lrow = lane & 15;                   // ldmatrix: row this lane
   const int lchunk = lane >> 4;                 // names, 16-byte chunk
-  const int r0 = c * 128 + wq * 16;             // + i * 64: this warp's rows
+  const int r0 = c * (kM / 2) + wq * 16;        // + i * 64: this warp's rows
   const int ldh = L.ldh;
   int ws = 0, wph = 0, xs = 0, xph = 0;
   float acc[2][2][32];
-  // pixel of each band row (-1: pad or past the batch), read by the last
-  // epilogue; complete at the consumer barrier after conv1
+  // pixel of each band row (-1: pad or past the batch), read by the
+  // epilogues of conv2 (kFront) and conv3; complete at the consumer barrier
+  // after conv1 (kBack: the one before conv3)
   int* rowpix = reinterpret_cast<int*>(base + L.pix_off);
-  rowpix[threadIdx.x - 128] = pixel_at(s0 + threadIdx.x - 128, B, H, W);
+  if (kM == kConsumers || threadIdx.x - 128 < kM)
+    rowpix[threadIdx.x - 128] = pixel_at(s0 + threadIdx.x - 128, B, H, W);
   const int ct = threadIdx.x & 127;             // thread in the warpgroup
 
   auto zero = [&]() {
@@ -463,8 +535,17 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
   // wgmma group a k step; the A fragments of step kk + 1 are loaded while
   // step kk multiplies (two register buffers; a buffer is refilled once
   // the group that read it is done).  Then the slice is released.
+  // On the wide route (one row tile a warpgroup) the round's products go
+  // into the spare accumulators acc[1], fresh each round, and are then
+  // added to acc[0] by a rounded f32 add: the tensor cores' own
+  // accumulation over K = 2,304 or 4,608 (conv2 at C_mid 256, 512) drifts
+  // from a rounded sum far enough to move a bf16 rounding of h1, h2 or y
+  // on more than 1% of a block's outputs (PERF.md), and 64 products
+  // a round keep it short.
+  constexpr bool kPromote = kRT == 1;
   auto mma_round = [&](auto a_addr, auto tiles_c, auto nt_c) {
-    constexpr int kTiles = decltype(tiles_c)::value;
+    constexpr int kTiles = kPromote ? decltype(tiles_c)::value & 1
+                                    : decltype(tiles_c)::value;
     constexpr int kNT = decltype(nt_c)::value;
     mbar_wait(full_w(ws), wph);
     const uint32_t wb = wring + ws * kWBytes;
@@ -481,8 +562,9 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
 #pragma unroll
         for (int n = 0; n < kNT; ++n)
           if (kTiles >> i & 1)
-            wgmma_64x64(acc[i][n], a[kk & 1][i],
-                        desc_b(wb + n * 8192 + kk * 32));
+            wgmma_64x64(acc[kPromote ? 1 : i][n], a[kk & 1][i],
+                        desc_b(wb + n * 8192 + kk * 32),
+                        kPromote ? kk > 0 : 1);
       wgmma_commit();
       if (kk < 3) {
         wgmma_wait<1>();                // step kk - 1 is done with its A
@@ -497,6 +579,11 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
     }
     wgmma_wait<0>();
     pin_acc();
+    if constexpr (kPromote && (kTiles & 1))
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[0][n][e] += acc[1][n][e];
 #pragma unroll
     for (int b = 0; b < 2; ++b)
 #pragma unroll
@@ -524,17 +611,17 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
     return h + (r * ldh + col) * 2;
   };
 
-  // ---- conv1 on the band and its halo: h1 = bf16(relu(w1 . x + b1)), 0
-  // at positions outside the image.  A pass covers up to 4 row tiles of
-  // 64; tile j goes to warpgroup j % 2, so that a short last pass is
-  // shared by both.
+  // ---- conv1 on the band and its halo, output channels 128 nc ..:
+  // h1 = bf16(relu(w1 . x + b1)), 0 at positions outside the image.  A pass
+  // covers up to 2 kRT row tiles of 64; tile j goes to warpgroup j % 2, so
+  // that a short last pass is shared by both.
   const int c1 = c * 64 + wq * 16;              // + 128 i: this warp's rows
-  auto conv1 = [&](auto nt_c) {
+  auto conv1 = [&](int nc, auto nt_c) {
     constexpr int kNT = decltype(nt_c)::value;
     for (int p = 0; p < passes; ++p) {
       int tiles = 0;
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < kRT; ++i)
         if (p * kM + c * 64 + i * 128 < L.h1_rows) tiles |= 1 << i;
       zero();
       for (int ks = 0; ks < ks_in; ++ks) {
@@ -553,12 +640,13 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int hl = p * kM + c1 + i * 128 + g + 8 * h;
+          if (kMode == kFront && hl >= L.h1_rows) continue;
           const bool inside = pixel_at(h0 + hl, B, H, W) >= 0;
 #pragma unroll
           for (int n = 0; n < kNT; ++n)
 #pragma unroll
             for (int j = 0; j < 8; ++j) {
-              const int ch = n * 64 + j * 8 + 2 * t;
+              const int ch = nc * 128 + n * 64 + j * 8 + 2 * t;
               float v0 = 0.0f, v1 = 0.0f;
               if (inside) {
                 v0 = fmaxf(acc[i][n][j * 4 + 2 * h] + b1[ch], 0.0f);
@@ -572,9 +660,10 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
     }
   };
 
-  // ---- conv2, 3x3 over h1: tap (dy, dx) is row offset dy * Wp + dx;
-  // h2 = bf16(relu(. + b2))
-  auto conv2 = [&](auto nt_c) {
+  // ---- conv2, 3x3 over h1, output channels 128 nc ..: tap (dy, dx) is row
+  // offset dy * Wp + dx; h2 = bf16(relu(. + b2)) into shared memory
+  // (kFull) or the scratch buffer at the band row's pixel (kFront)
+  auto conv2 = [&](int nc, auto nt_c) {
     constexpr int kNT = decltype(nt_c)::value;
     zero();
     for (int tap = 0; tap < 9; ++tap) {
@@ -584,22 +673,28 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
                     return h_addr(sH1, r0 + i * 64 + lrow + off,
                                   ks * 64 + kk * 16 + lchunk * 8);
                   },
-                  Int<3>{}, nt_c);
+                  Int<kAllTiles>{}, nt_c);
     }
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < kRT; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int m = r0 + i * 64 + g + 8 * h;
+        bf16* out = pH2 + m * ldh;
+        if constexpr (kMode == kFront) {
+          const int px = rowpix[m];
+          if (px < 0) continue;
+          out = h2g + (size_t)px * Cmid_p;
+        }
 #pragma unroll
         for (int n = 0; n < kNT; ++n)
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
-            const int ch = n * 64 + j * 8 + 2 * t;
+            const int ch = nc * 128 + n * 64 + j * 8 + 2 * t;
             const float v0 = fmaxf(acc[i][n][j * 4 + 2 * h] + b2[ch], 0.0f);
             const float v1 = fmaxf(acc[i][n][j * 4 + 2 * h + 1] + b2[ch + 1],
                                    0.0f);
-            *reinterpret_cast<__nv_bfloat162*>(pH2 + m * ldh + ch) =
+            *reinterpret_cast<__nv_bfloat162*>(out + ch) =
                 __floats2bfloat162_rn(v0, v1);
           }
       }
@@ -612,15 +707,15 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
   // one while the chunk's products run), every thread adds its sums in f32
   // and rounds in place, the tile goes out; residual and y move in 16-byte
   // pieces, a pixel's 64 channels side by side.
-  constexpr int kLdo = 72;                      // staging row, bf16
-  bf16* stage = pH1 + c * 128 * kLdo;
+  constexpr int kRows = kM / 2;                 // band rows a warpgroup
+  bf16* stage = pH1 + c * kRows * kLdo;
   auto wg_sync = [&]() {
     asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory");
   };
   auto fetch_residual = [&](int ch0) {        // identity blocks: Cin == Cout
-    for (int u = ct; u < 128 * 8; u += 128) {
+    for (int u = ct; u < kRows * 8; u += 128) {
       const int row = u >> 3, c8 = (u & 7) * 8;
-      const int px = rowpix[c * 128 + row];
+      const int px = rowpix[c * kRows + row];
       const bool in = px >= 0 && ch0 + c8 < Cout;
       cp_async16(smem_u32(stage + row * kLdo + c8),
                  in ? x + (size_t)px * Cin + ch0 + c8 : x, in);
@@ -633,19 +728,29 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
     if (!down) fetch_residual(nc * 128);
 #endif
     zero();
-    for (int ks = 0; ks < ks_mid; ++ks)
-      mma_round([&](int i, int kk) {
-                  return h_addr(sH2, r0 + i * 64 + lrow,
-                                ks * 64 + kk * 16 + lchunk * 8);
-                },
-                Int<3>{}, nt_c);
+    for (int ks = 0; ks < ks_mid; ++ks) {
+      if constexpr (kMode == kBack) {
+        const uint32_t hb = take_x();
+        mma_round([&](int i, int kk) {
+                    return x_addr(hb, r0 + i * 64 + lrow, kk);
+                  },
+                  Int<kAllTiles>{}, nt_c);
+        release_x();
+      } else {
+        mma_round([&](int i, int kk) {
+                    return h_addr(sH2, r0 + i * 64 + lrow,
+                                  ks * 64 + kk * 16 + lchunk * 8);
+                  },
+                  Int<kAllTiles>{}, nt_c);
+      }
+    }
     if (down)
       for (int ks = 0; ks < ks_in; ++ks) {
         const uint32_t xb = take_x();
         mma_round([&](int i, int kk) {
                     return x_addr(xb, r0 + i * 64 + lrow, kk);
                   },
-                  Int<3>{}, nt_c);
+                  Int<kAllTiles>{}, nt_c);
         release_x();
       }
 #ifdef ABLATE_EPILOGUE
@@ -660,7 +765,7 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
         wg_sync();
       }
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < kRT; ++i)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = i * 64 + wq * 16 + g + 8 * h;
@@ -683,9 +788,9 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
           }
         }
       wg_sync();
-      for (int u = ct; u < 128 * 8; u += 128) {
+      for (int u = ct; u < kRows * 8; u += 128) {
         const int row = u >> 3, c8 = (u & 7) * 8;
-        const int px = rowpix[c * 128 + row];
+        const int px = rowpix[c * kRows + row];
         if (px >= 0 && ch0 + c8 < Cout)
           *reinterpret_cast<uint4*>(y + (size_t)px * Cout + ch0 + c8) =
               *reinterpret_cast<const uint4*>(stage + row * kLdo + c8);
@@ -694,58 +799,114 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
     }
   };
 
-  const bool wide = Cmid_p == 128;
+  if constexpr (kMode != kBack) {
 #ifndef ABLATE_CONV1
-  if (wide) conv1(Int<2>{}); else conv1(Int<1>{});
+    for (int nc = 0; nc < ncols; ++nc) {
+      if (col_rows(nc) == 128) conv1(nc, Int<2>{}); else conv1(nc, Int<1>{});
+    }
 #endif
-  consumer_sync();                              // h1 complete
+    consumer_sync();                            // h1 complete
 #ifndef ABLATE_CONV2
-  if (wide) conv2(Int<2>{}); else conv2(Int<1>{});
+    for (int nc = 0; nc < ncols; ++nc) {
+      if (col_rows(nc) == 128) conv2(nc, Int<2>{}); else conv2(nc, Int<1>{});
+    }
 #endif
-  consumer_sync();                              // h2 complete
-#ifndef ABLATE_CONV3
-  for (int nc = 0; nc < nchunks; ++nc) {
-    if (Cout_p - nc * 128 >= 128) conv3(nc, Int<2>{}); else conv3(nc, Int<1>{});
   }
+  // h2 complete (kFull); rowpix complete (kBack, which has no conv1 whose
+  // barrier would order it)
+  if constexpr (kMode != kFront) consumer_sync();
+  if constexpr (kMode != kFront) {
+#ifndef ABLATE_CONV3
+    for (int nc = 0; nc < nchunks; ++nc) {
+      if (Cout_p - nc * 128 >= 128) conv3(nc, Int<2>{}); else conv3(nc, Int<1>{});
+    }
+#endif
+  }
+}
+
+// Sets the block's shared memory and launches one route over one block per
+// band of kM positions; -> cudaError_t.
+template <int kM, int kMode>
+int launch(const void* x, void* y, void* h2, const void* w1, const float* b1,
+           const void* w2, const float* b2, const void* w3, const float* b3,
+           const void* wd, const float* bd, int B, int H, int W, int Cin,
+           int cmid_p, int Cout, long long positions, cudaStream_t stream) {
+  const Layout L = layout<kM, kMode>(W, cmid_p, wd != nullptr);
+  if (L.bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      bottleneck_kernel<kM, kMode>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (int)((positions + kM - 1) / kM);
+  bottleneck_kernel<kM, kMode><<<blocks, kThreads, L.bytes, stream>>>(
+      static_cast<const bf16*>(x), static_cast<bf16*>(y),
+      static_cast<bf16*>(h2), static_cast<const bf16*>(w1), b1,
+      static_cast<const bf16*>(w2), b2, static_cast<const bf16*>(w3), b3,
+      static_cast<const bf16*>(wd), bd, B, H, W, Cin, cmid_p, Cout);
+  return (int)cudaGetLastError();
+}
+
+// The wide route in one launch (kFull on bands of 128) where a block holds
+// h1 and h2 of a band (C_mid 256 at 14^2 without a downsample: 219,760
+// bytes), else in two.
+inline bool wide_in_one(int W, int cmid_p, bool down) {
+#ifdef ABLATE_WIDE_SPLIT
+  return false;
+#else
+  return layout<128, kFull>(W, cmid_p, down).bytes <= kMaxSmem;
 #endif
 }
 
 }  // namespace
 
-// Bytes of dynamic shared memory a block needs at these widths, or -1 where
-// the kernel does not take them (C_mid above 128); the wrapper refuses
+// Bytes of dynamic shared memory a block needs at these widths (the larger
+// of the wide route's two launches where it takes two); the wrapper refuses
 // widths that need more than a block can have (232,448).
 extern "C" int tpubody_fused_stage_smem_bytes(int W, int Cmid, int has_down) {
   const int cmid_p = round64(Cmid);
-  if (cmid_p > 128) return -1;
-  return layout(W, cmid_p, has_down != 0).bytes;
+  const bool down = has_down != 0;
+  if (cmid_p <= 128) return layout<256, kFull>(W, cmid_p, down).bytes;
+  if (wide_in_one(W, cmid_p, down))
+    return layout<128, kFull>(W, cmid_p, down).bytes;
+  const int front = layout<128, kFront>(W, cmid_p, down).bytes;
+  const int back = layout<128, kBack>(W, cmid_p, down).bytes;
+  return front > back ? front : back;
 }
 
-// One bottleneck: launches the kernel on `stream` over one block per band
-// of kM positions of the padded sequence and returns cudaGetLastError().
-// Weights and biases are packed as described above (Cmid is the unpadded
-// width); wd and bd are null for an identity residual.
+// Kernel launches one bottleneck takes at these widths: 1 (narrow, or wide
+// in one), 2 (wide in two, h2 through device memory).
+extern "C" int tpubody_fused_stage_launches(int W, int Cmid, int has_down) {
+  const int cmid_p = round64(Cmid);
+  return cmid_p <= 128 || wide_in_one(W, cmid_p, has_down != 0) ? 1 : 2;
+}
+
+// One bottleneck: launches the kernel(s) on `stream` and returns the first
+// error (cudaGetLastError() after each launch).  Weights and biases are
+// packed as described above (Cmid is the unpadded width); wd and bd are
+// null for an identity residual; h2 is a (B H W, round64(Cmid)) bf16
+// scratch buffer where the bottleneck takes two launches (may be null
+// otherwise).
 extern "C" int tpubody_fused_stage_block(
-    const void* x, void* y, const void* w1, const float* b1, const void* w2,
-    const float* b2, const void* w3, const float* b3, const void* wd,
-    const float* bd, int B, int H, int W, int Cin, int Cmid, int Cout,
-    cudaStream_t stream) {
+    const void* x, void* y, void* h2, const void* w1, const float* b1,
+    const void* w2, const float* b2, const void* w3, const float* b3,
+    const void* wd, const float* bd, int B, int H, int W, int Cin, int Cmid,
+    int Cout, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
   const int cmid_p = round64(Cmid);
   const long long positions = (long long)B * (H + 1) * (W + 2);
-  if (cmid_p > 128 || Cin % 8 || Cout % 8 || positions > (1LL << 30))
+  if (Cin % 8 || Cout % 8 || positions > (1LL << 30))
     return (int)cudaErrorInvalidValue;
-  const Layout L = layout(W, cmid_p, wd != nullptr);
-  if (L.bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      bottleneck_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L.bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (int)((positions + kM - 1) / kM);
-  bottleneck_kernel<<<blocks, kThreads, L.bytes, stream>>>(
-      static_cast<const bf16*>(x), static_cast<bf16*>(y),
-      static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2,
-      static_cast<const bf16*>(w3), b3, static_cast<const bf16*>(wd), bd, B,
-      H, W, Cin, cmid_p, Cout);
-  return (int)cudaGetLastError();
+  if (cmid_p <= 128)
+    return launch<256, kFull>(x, y, nullptr, w1, b1, w2, b2, w3, b3, wd, bd,
+                              B, H, W, Cin, cmid_p, Cout, positions, stream);
+  if (wide_in_one(W, cmid_p, wd != nullptr))
+    return launch<128, kFull>(x, y, nullptr, w1, b1, w2, b2, w3, b3, wd, bd,
+                              B, H, W, Cin, cmid_p, Cout, positions, stream);
+  if (h2 == nullptr) return (int)cudaErrorInvalidValue;
+  const int err = launch<128, kFront>(x, y, h2, w1, b1, w2, b2, w3, b3, wd,
+                                      bd, B, H, W, Cin, cmid_p, Cout,
+                                      positions, stream);
+  if (err != (int)cudaSuccess) return err;
+  return launch<128, kBack>(x, y, h2, w1, b1, w2, b2, w3, b3, wd, bd, B, H,
+                            W, Cin, cmid_p, Cout, positions, stream);
 }

@@ -4,10 +4,11 @@
 A chain of stride-1 bottlenecks with BatchNorm folded into the weights,
 bf16 operands, f32 accumulation and bf16 roundings between the
 convolutions, computed by the hand-written CUDA kernel
-``csrc/fused_stage.cu``: one launch a bottleneck, ``h1`` and ``h2`` never
-leaving shared memory.  As in ``tpubody``, the fused stage is an experiment
-measured beside the library's convolutions (``tpubody_torch.bench
---fused-stage``); ``models/hmr.py`` does not route through it.
+``csrc/fused_stage.cu``: one launch a bottleneck wherever ``h1`` and
+``h2`` fit in a block's shared memory.  As in ``tpubody``, the fused stage
+is an experiment measured beside the library's convolutions
+(``tpubody_torch.bench --fused-stage``); ``models/hmr.py`` does not route
+through it.
 
 :func:`run_stage` keeps the JAX layout (NHWC in, NHWC out).  On a CUDA
 tensor it launches the kernel or raises; on a CPU tensor it takes
@@ -16,8 +17,13 @@ roundings.  The kernel needs no even ``C_mid`` (that rule came with the
 TPU's packed rolls and is dropped): :func:`fuse_stage` pads the *weights*
 with zeros to multiples of 64 once, in the swizzled tiles the kernel's
 bulk copies land, and the kernel masks the activations' ragged channels
-itself.  On the card it takes C_mid up to 128 and C_in, C_out that are
-multiples of 8 (every ResNet-50 stride-1 block of stages 1 and 2).
+itself.  Its 16-byte copies want C_in and C_out in multiples of 8, so
+:func:`run_stage` pads x's channel axis with zeros to the next one
+(:func:`pad_channels`) and slices y: the zero channels meet zero weights
+and biases, so no sum changes.  A bottleneck is one launch where a
+block's shared memory holds h1 and h2 of its band (ResNet-50's stages 1-3);
+elsewhere (stage 4: C_mid 512) it takes two, with h2 passed through a
+scratch buffer in device memory (``csrc/fused_stage.cu`` says why).
 """
 from __future__ import annotations
 
@@ -40,6 +46,23 @@ FIELDS = ("A1_0", "b1_0", "A2_0", "b2_0", "A3_0", "b3_0", "Ad", "bd",
 
 def _round64(c: int) -> int:
     return (c + 63) // 64 * 64
+
+
+def _round8(c: int) -> int:
+    return (c + 7) // 8 * 8
+
+
+def pad_channels(x: torch.Tensor, channels: int) -> torch.Tensor:
+    """x (..., C) with its last axis zero-padded to ``channels`` >= C,
+    contiguous; x itself (made contiguous) where C == ``channels``."""
+    c = x.shape[-1]
+    if channels < c:
+        raise ValueError(f"cannot pad {c} channels to {channels}")
+    if channels == c:
+        return x.contiguous()
+    out = x.new_zeros(tuple(x.shape[:-1]) + (channels,))
+    out[..., :c] = x
+    return out
 
 
 def _pad(x: torch.Tensor, shape) -> torch.Tensor:
@@ -273,22 +296,25 @@ def _check_input(x_nhwc: torch.Tensor, stage: FusedStage):
 def run_stage_reference(x_nhwc: torch.Tensor,
                         stage: FusedStage) -> torch.Tensor:
     """The plain PyTorch version of the kernel, with its roundings:
-    operands in bf16, products summed in f32 (float32 convolutions of
-    bf16 values; they do not depend on the TF32 switches' rounding of the
-    operands, since a bf16 value is a TF32 value), bias and relu in f32,
-    ``h1``, ``h2`` and every block's ``y`` rounded to bf16; the residual of
-    a widening block stays f32 until the add.
+    operands in bf16, each convolution's sums taken in float64 and rounded
+    to f32 (the f32 value of the exact sum, which every f32 summation order
+    approximates; a float32 convolution misses it by an amount that depends
+    on the algorithm the library picks for the batch, and chip_smoke.py
+    prints by how much), bias and relu in f32, ``h1``, ``h2`` and every
+    block's ``y`` rounded to bf16; the residual of a widening block stays
+    f32 until the add.
     (B, H, W, C_in) -> (B, H, W, C_out) bf16."""
     _check_input(x_nhwc, stage)
 
     def conv(h, A, b, taps=1):
-        w = A.float()
+        w = A.to(torch.float64)
         if taps == 1:
             w = w[:, :, None, None]
         else:
             c_mid = A.shape[0]
             w = w.reshape(c_mid, 3, 3, c_mid).permute(0, 3, 1, 2)
-        return F.conv2d(h, w, padding=taps // 2) + b.reshape(1, -1, 1, 1)
+        return (F.conv2d(h.to(torch.float64), w, padding=taps // 2).float()
+                + b.reshape(1, -1, 1, 1))
 
     def rounded(v):
         return v.to(torch.bfloat16).float()
@@ -305,9 +331,9 @@ def run_stage_reference(x_nhwc: torch.Tensor,
 def run_stage(x_nhwc: torch.Tensor, stage: FusedStage) -> torch.Tensor:
     """Apply a fused residual stage: (B, H, W, C_in) -> (B, H, W, C_out)
     bf16.  Stride-1 blocks only.  A CUDA tensor goes through the kernel,
-    one launch a bottleneck (``native.LAUNCHES["fused_stage"]`` counts
-    them), or this raises; a CPU tensor through
-    :func:`run_stage_reference`."""
+    one launch a bottleneck, or two where shared memory cannot hold h2
+    (``native.LAUNCHES["fused_stage"]`` counts them), or this raises; a CPU
+    tensor through :func:`run_stage_reference`."""
     _check_input(x_nhwc, stage)
     device = x_nhwc.device
     if device.type == "cpu":
@@ -316,40 +342,44 @@ def run_stage(x_nhwc: torch.Tensor, stage: FusedStage) -> torch.Tensor:
         raise ValueError(f"run_stage runs on CUDA or CPU tensors, got {device}")
     B, H, W, _ = x_nhwc.shape
     lib = native.library()
+    scratch = 0
+    launches = []
     for blk in stage.packed:
-        if blk["c_in"] % 8 or blk["c_out"] % 8:
-            raise ValueError(
-                f"the kernel takes channel counts that are multiples of 8, "
-                f"got C_in = {blk['c_in']}, C_out = {blk['c_out']}")
-        need = lib.tpubody_fused_stage_smem_bytes(W, blk["c_mid"],
-                                                  int(blk["wd"] is not None))
-        if need < 0:
-            raise ValueError(f"C_mid = {blk['c_mid']}: the kernel takes at "
-                             f"most 128")
+        widths = (W, blk["c_mid"], int(blk["wd"] is not None))
+        need = lib.tpubody_fused_stage_smem_bytes(*widths)
         if need > MAX_SMEM:
             raise ValueError(
                 f"W = {W}, C_mid = {blk['c_mid']} needs {need} bytes of "
                 f"shared memory a block; the card has {MAX_SMEM}")
+        launches.append(lib.tpubody_fused_stage_launches(*widths))
+        if launches[-1] > 1:
+            scratch = max(scratch, _round64(blk["c_mid"]))
     if B * (H + 1) * (W + 2) > 2 ** 30:
         raise ValueError("at most 2^30 padded positions a call")
-    y = x_nhwc.to(torch.bfloat16).contiguous()
+    y = pad_channels(x_nhwc.to(torch.bfloat16),
+                     _round8(stage.packed[0]["c_in"]))
+    # h2 of the wide route, (B H W, round64(C_mid)) bf16, shared by the blocks
+    h2 = (torch.empty((B * H * W, scratch), dtype=torch.bfloat16,
+                      device=device) if scratch else None)
 
     def ptr(t):
         return None if t is None else ctypes.c_void_p(t.data_ptr())
 
     with torch.cuda.device(device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-        for blk in stage.packed:
+        for blk, n_launch in zip(stage.packed, launches):
             x = y
             if x.data_ptr() % 16:
                 raise ValueError("x is not 16-byte aligned")
-            y = torch.empty((B, H, W, blk["c_out"]), dtype=torch.bfloat16,
+            c_in8, c_out8 = _round8(blk["c_in"]), _round8(blk["c_out"])
+            y = torch.empty((B, H, W, c_out8), dtype=torch.bfloat16,
                             device=device)
             err = lib.tpubody_fused_stage_block(
-                ptr(x), ptr(y), ptr(blk["w1"]), ptr(blk["b1"]),
+                ptr(x), ptr(y), ptr(h2), ptr(blk["w1"]), ptr(blk["b1"]),
                 ptr(blk["w2"]), ptr(blk["b2"]), ptr(blk["w3"]),
                 ptr(blk["b3"]), ptr(blk["wd"]), ptr(blk["bd"]), B, H, W,
-                blk["c_in"], blk["c_mid"], blk["c_out"], stream)
+                c_in8, blk["c_mid"], c_out8, stream)
             native.check(err, "fused_stage launch")
-            native.LAUNCHES["fused_stage"] += 1
-    return y
+            native.LAUNCHES["fused_stage"] += n_launch
+    c_out = stage.packed[-1]["c_out"]
+    return y if y.shape[-1] == c_out else y[..., :c_out].contiguous()

@@ -127,15 +127,18 @@ def library() -> ctypes.CDLL:
                                           ci, ci, ci, ci, ci, vp]
         lib.tpubody_fused_lbs.restype = ci
         lib.tpubody_fused_raster.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
-                                             ci, ci, ci, ctypes.c_float, vp]
+                                             ci, ci, ci, ctypes.c_float, ci,
+                                             vp]
         lib.tpubody_fused_raster.restype = ci
         lib.tpubody_zbuffer.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,
-                                        ctypes.c_float, vp]
+                                        ctypes.c_float, ci, vp]
         lib.tpubody_zbuffer.restype = ci
-        lib.tpubody_fused_stage_block.argtypes = [vp] * 10 + [ci] * 6 + [vp]
+        lib.tpubody_fused_stage_block.argtypes = [vp] * 11 + [ci] * 6 + [vp]
         lib.tpubody_fused_stage_block.restype = ci
         lib.tpubody_fused_stage_smem_bytes.argtypes = [ci, ci, ci]
         lib.tpubody_fused_stage_smem_bytes.restype = ci
+        lib.tpubody_fused_stage_launches.argtypes = [ci, ci, ci]
+        lib.tpubody_fused_stage_launches.restype = ci
         lib.tpubody_cuda_error_string.argtypes = [ci]
         lib.tpubody_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -18,11 +18,16 @@ half (``bin_faces``, the Pallas kernel ``_raster_kernel`` and its launcher
     the chunk's tile origin (global f32 pixel coordinates cancel at
     1024^2), and the kernel works in tile-local coordinates.
 
-  Kernel (:func:`fused_raster`): one thread block per (frame, tile) walks
-    the tile's chunk range, keeps per pixel the minimum packed key
-    ``(depth << bits) | face`` and its owner, and evaluates the owner's
-    attribute planes once at the end.  It writes ``win`` and the attribute
-    planes in image layout.
+  Kernel (:func:`fused_raster`): a cluster of k thread blocks per (frame,
+    tile) (:func:`cluster_for`) splits the tile's chunk range (block r
+    walks chunks r, r + k, ...); each of a block's 8 warps owns a 32 x 4 pixel
+    rectangle and evaluates only the faces that can reach it
+    (:func:`warp_rejects`, a conservative corner test); per pixel the
+    minimum packed key ``(depth << bits) | face`` and its owner are kept,
+    the blocks combine their keys, and the owner's attribute planes are
+    evaluated once at the end.  It writes ``win`` and the attribute planes
+    in image layout.  :func:`fused_raster_emulated` is that algorithm in
+    torch ops (the CPU tests hold it to the plain version bit for bit).
 
 The fused table layout is the port's own: ``(B, MAXC, CF, G, 3)`` float32
 with ``G = 5 + C`` groups ``[e0, e1, e2, zq, fid, attr_0 .. attr_{C-1}]``,
@@ -38,7 +43,9 @@ plain torch ops.
     only the minimum key; pass 2 is the fragment rasterizer's exact
     barycentric shading (``raster.shade_from_zbuf``).  Same rule:
     :func:`zbuffer` launches its kernel for CUDA tensors or raises, and
-    takes :func:`zbuffer_reference` for CPU tensors.
+    takes :func:`zbuffer_reference` for CPU tensors.  Its kernel shares the
+    fused one's design (cluster split, warp rejection, bulk-copied chunks);
+    :func:`zbuffer_emulated` is its algorithm in torch ops.
 """
 from __future__ import annotations
 
@@ -60,6 +67,21 @@ EPS = 1e-7                    # edge-function tolerance (normalized units)
 INT32_MAX = raster_lib.INT32_MAX
 MAX_ATTR = 32                 # attribute channels per fused call
 CF = 128                      # faces per chunk of the z-buffer kernel
+# Thread blocks a tile of both kernels, a cluster that splits the tile's
+# chunks (:func:`cluster_for`): up to this many tiles a launch, 2; above, 1.
+# A launch of few tiles (one 1024^2 frame: 1,024, a fifth of them live)
+# leaves SMs idle while its heaviest tiles walk their chunks, and splitting
+# them shortens that tail; a launch of many (8 frames: 8,192) fills the card
+# without it, and the second block and the combine only cost.  Measured on
+# the video's base pass at 1-8 frames (chip_smoke.py phase 9, PERF.md): 2
+# is faster up to 4 frames (4,096 tiles), 1 from 6 frames on.
+CLUSTER_TILES = 4096
+# The kernels' warp rectangles: warp w of a tile covers the pixels
+# x in 32 (w % 4) .. + 31, y in 4 (w // 4) .. + 3.
+WARP_W, WARP_H, N_WARPS = 32, 4, 8
+# The rejection margin as a fraction of |a| X + |b| Y + |c| (csrc/
+# raster_common.cuh, edge_fails, derives it).
+MARGIN_SCALE = 2.0 ** -20
 
 
 def _parse_cf(value: str) -> int:
@@ -348,6 +370,71 @@ def _affine(coef: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
     return (coef[..., 0:1] * px + coef[..., 1:2] * py) + coef[..., 2:3]
 
 
+def warp_rects(device=None) -> torch.Tensor:
+    """(8, 4) float32: per warp of a tile the pixel-centre corners (xa, xb,
+    ya, yb) of its 32 x 4 rectangle, tile-local."""
+    w = torch.arange(N_WARPS, device=device)
+    xa = (WARP_W * (w % 4)).to(torch.float32) + 0.5
+    ya = (WARP_H * torch.div(w, 4, rounding_mode="floor")).to(
+        torch.float32) + 0.5
+    return torch.stack([xa, xa + (WARP_W - 1), ya, ya + (WARP_H - 1)], -1)
+
+
+def pixel_warps(device=None) -> torch.Tensor:
+    """(LP,) int64: the warp that owns each pixel of a tile (row-major)."""
+    p = torch.arange(LP, device=device)
+    x, y = p % TILE_W, torch.div(p, TILE_W, rounding_mode="floor")
+    return torch.div(x, WARP_W, rounding_mode="floor") + 4 * torch.div(
+        y, WARP_H, rounding_mode="floor")
+
+
+def edge_fails(coef: torch.Tensor, rects: torch.Tensor) -> torch.Tensor:
+    """The kernels' rejection of one edge function for warp rectangles, in
+    their float32 order: coef (..., 3) = (a, b, c), rects (..., 4) as
+    :func:`warp_rects`, broadcast against each other -> bool, True where no
+    pixel centre of the rectangle can pass ``e >= -1e-7`` (a corner
+    maximum plus a rounding margin; ``fmax`` ignores a NaN as ``fmaxf``
+    does, and a NaN or infinite sum is kept)."""
+    a, b, c = coef[..., 0], coef[..., 1], coef[..., 2]
+    xa, xb, ya, yb = rects[..., 0], rects[..., 1], rects[..., 2], rects[..., 3]
+    m = (torch.fmax(a * xa, a * xb) + torch.fmax(b * ya, b * yb)) + c
+    s = (a.abs() * xb + b.abs() * yb) + c.abs()
+    return (m + s * MARGIN_SCALE) < -EPS
+
+
+def warp_rejects(edges: torch.Tensor, rects: torch.Tensor) -> torch.Tensor:
+    """edges (..., 3, 3): a face's three edge functions (a, b, c); rects
+    (..., 4) -> bool, True where the kernels skip the face for that warp:
+    some edge fails at every pixel of the rectangle."""
+    return (edge_fails(edges[..., 0, :], rects)
+            | edge_fails(edges[..., 1, :], rects)
+            | edge_fails(edges[..., 2, :], rects))
+
+
+def cluster_for(tiles: int) -> int:
+    """Blocks a tile for a launch over ``tiles`` (frames x tiles) tiles:
+    2 up to :data:`CLUSTER_TILES` tiles, 1 above."""
+    return 2 if tiles <= CLUSTER_TILES else 1
+
+
+def _combine_ranks(best: torch.Tensor) -> torch.Tensor:
+    """The kernels' cluster combine.  best (ranks, T, LP) int64: each
+    block's ``key << 32 | owner`` per pixel (``INT32_MAX << 32`` where it
+    covers nothing) -> (T, LP): the minimum key with its owner, taken from
+    the one block that holds it (block 0 for pixels nothing covers)."""
+    none = INT32_MAX << 32
+    keys = best >> 32
+    gmin = keys.amin(dim=0)
+    covered = gmin != INT32_MAX
+    rank0 = torch.zeros_like(keys, dtype=torch.bool)
+    rank0[0] = True
+    writer = torch.where(covered, keys == gmin, rank0)
+    if not bool((writer.sum(dim=0) == 1).all()):
+        raise RuntimeError("the cluster combine found no single writer")
+    out = torch.where(writer, best, torch.full_like(best, none)).amin(dim=0)
+    return torch.where(covered, out, torch.full_like(out, none))
+
+
 def fused_raster_reference(table: torch.Tensor, cstarts: torch.Tensor,
                            height: int, width: int, fb: int,
                            depth_levels: int
@@ -410,6 +497,74 @@ def fused_raster_reference(table: torch.Tensor, cstarts: torch.Tensor,
     return torch.stack(wins), torch.stack(attrs)
 
 
+def fused_raster_emulated(table: torch.Tensor, cstarts: torch.Tensor,
+                          height: int, width: int, fb: int,
+                          depth_levels: int, ranks: int = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's algorithm in torch ops, on the same table: ``ranks``
+    blocks a tile, block r taking the tile's chunks r, r + ranks, ...; a
+    face evaluated only at the warps that :func:`warp_rejects` keeps; each
+    block's minimum of ``key << 32 | owner`` per pixel; the blocks combined
+    by :func:`_combine_ranks`; the winner's attribute planes evaluated
+    once; ``ranks`` as the kernel's launch takes it where None.  -> (win,
+    attr) as :func:`fused_raster_reference`, which it equals bit for bit
+    when the rejection is conservative."""
+    B, MAXC, CF_, G, _ = table.shape
+    C = G - 5
+    TX, TY = width // TILE_W, height // TILE_H
+    T = TX * TY
+    ranks = ranks or cluster_for(B * T)
+    dev = table.device
+    px, py = _pixel_coords(dev)
+    rects, pw = warp_rects(dev), pixel_warps(dev)
+    zcap = float(depth_levels - 1)
+    none = (INT32_MAX << 32)
+    wins, attrs = [], []
+    for b in range(B):
+        starts = cstarts[b].to(torch.int64)
+        cidx = torch.arange(MAXC, dtype=torch.int64, device=dev)
+        ct = torch.searchsorted(starts[1:].contiguous(), cidx, right=True)
+        live = ct < T
+        ct = torch.clamp(ct, max=T - 1)
+        rank = (cidx - starts[ct]) % ranks          # the block that walks it
+        best = torch.full((ranks * T, LP), none, dtype=torch.int64,
+                          device=dev)
+        for s in range(0, MAXC, _REF_CHUNK_BLOCK):
+            tab = table[b, s:s + _REF_CHUNK_BLOCK]       # (n, CF, G, 3)
+            n = tab.shape[0]
+            keep = ~warp_rejects(tab[:, :, None, 0:3], rects)  # (n, CF, 8)
+            e0 = _affine(tab[:, :, 0], px, py)
+            e1 = _affine(tab[:, :, 1], px, py)
+            e2 = _affine(tab[:, :, 2], px, py)
+            zq = _affine(tab[:, :, 3], px, py)
+            fid = tab[:, :, 4, 2:3].to(torch.int32)
+            inside = ((e0 >= -EPS) & (e1 >= -EPS) & (e2 >= -EPS)
+                      & keep[:, :, pw] & live[s:s + n, None, None])
+            dq = torch.clamp(zq, 0.0, zcap).to(torch.int32)
+            key = raster_lib.shift_key(dq, fb) | fid
+            pos = (torch.arange(s * CF_, (s + n) * CF_, dtype=torch.int64,
+                                device=dev).reshape(n, CF_, 1))
+            cand = torch.where(inside, (key.to(torch.int64) << 32) | pos,
+                               torch.full_like(pos, none))
+            row = (rank[s:s + n] * T + ct[s:s + n])[:, None].expand(n, LP)
+            best.scatter_reduce_(0, row, cand.amin(dim=1), "amin",
+                                 include_self=True)
+        best = _combine_ranks(best.reshape(ranks, T, LP))
+        win = (best >> 32).to(torch.int32)
+        hit = win != INT32_MAX
+        pos = torch.where(hit, best & 0xFFFFFFFF, torch.zeros_like(best))
+        coef = table[b].reshape(MAXC * CF_, G, 3)[:, 5:]
+        own = coef[pos.reshape(-1)].reshape(T, LP, C, 3)
+        val = ((own[..., 0] * px[:, None] + own[..., 1] * py[:, None])
+               + own[..., 2])
+        val = torch.where(hit[..., None], val, torch.zeros_like(val))
+        wins.append(win.reshape(TY, TX, TILE_H, TILE_W).permute(0, 2, 1, 3)
+                    .reshape(height, width))
+        attrs.append(val.reshape(TY, TX, TILE_H, TILE_W, C)
+                     .permute(4, 0, 2, 1, 3).reshape(C, height, width))
+    return torch.stack(wins), torch.stack(attrs)
+
+
 def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...],
            dtype: torch.dtype, device: torch.device) -> None:
     if t.device != device:
@@ -439,8 +594,7 @@ def fused_raster(table: torch.Tensor, cstarts: torch.Tensor, height: int,
         raise ValueError(f"table has shape {tuple(table.shape)}, expected "
                          f"(B, MAXC, CF, 5 + C, 3)")
     device = table.device
-    B, MAXC, CF, G, _ = table.shape
-    C = G - 5
+    B, C = table.shape[0], table.shape[3] - 5
     T = (width // TILE_W) * (height // TILE_H)
     if C < 0 or C > MAX_ATTR:
         raise ValueError(f"at most {MAX_ATTR} attribute channels per call, "
@@ -451,8 +605,23 @@ def fused_raster(table: torch.Tensor, cstarts: torch.Tensor, height: int,
     if device.type != "cuda":
         raise ValueError(f"fused_raster runs on CUDA or CPU tensors, got "
                          f"{device}")
+    return _fused_raster_launch(table, cstarts, height, width, fb,
+                                depth_levels, cluster_for(B * T))
+
+
+def _fused_raster_launch(table: torch.Tensor, cstarts: torch.Tensor,
+                         height: int, width: int, fb: int, depth_levels: int,
+                         cluster: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_raster`'s kernel launch on CUDA tensors, in clusters
+    of ``cluster`` (1 or 2) blocks a tile."""
+    device = table.device
+    B, MAXC, CF, G, _ = table.shape
+    C = G - 5
+    T = (width // TILE_W) * (height // TILE_H)
     _check("table", table, (B, MAXC, CF, G, 3), torch.float32, device)
     _check("cstarts", cstarts, (B, T + 1), torch.int32, device)
+    if table.data_ptr() % 16:
+        raise ValueError("table is not 16-byte aligned")
     win = torch.empty((B, height, width), dtype=torch.int32, device=device)
     attr = torch.empty((B, C, height, width), dtype=torch.float32,
                        device=device)
@@ -462,7 +631,7 @@ def fused_raster(table: torch.Tensor, cstarts: torch.Tensor, height: int,
         err = lib.tpubody_fused_raster(
             table.data_ptr(), cstarts.data_ptr(), win.data_ptr(),
             attr.data_ptr(), B, height, width, MAXC, CF, C, fb,
-            ctypes.c_float(float(depth_levels - 1)),
+            ctypes.c_float(float(depth_levels - 1)), cluster,
             ctypes.c_void_p(stream))
     native.check(err, "fused_raster launch")
     native.LAUNCHES["fused_raster"] += 1
@@ -666,6 +835,51 @@ def zbuffer_reference(table: torch.Tensor, nchunks: torch.Tensor,
             .reshape(B, height, width))
 
 
+def zbuffer_emulated(table: torch.Tensor, nchunks: torch.Tensor,
+                     height: int, width: int, fb: int, depth_levels: int,
+                     ranks: int = None) -> torch.Tensor:
+    """The z-buffer kernel's algorithm in torch ops, on the same table:
+    ``ranks`` blocks a tile, block r taking chunks r, r + ranks, ...; a face
+    evaluated only at the warps that :func:`warp_rejects` keeps; the
+    blocks' minima combined per pixel.  -> (B, H, W) int32, equal to
+    :func:`zbuffer_reference` bit for bit when the rejection is
+    conservative; ``ranks`` as the kernel's launch takes it where None."""
+    B, T, NC = table.shape[:3]
+    TX, TY = width // TILE_W, height // TILE_H
+    ranks = ranks or cluster_for(B * T)
+    dev = table.device
+    px, py = _pixel_coords(dev)
+    rects, pw = warp_rects(dev), pixel_warps(dev)
+    zcap = float(depth_levels - 1)
+    tab = table.reshape(B * T, NC, 5, CF, 4)
+    n = torch.clamp(nchunks.reshape(B * T), 0, NC)
+    best = torch.full((ranks, B * T, LP), INT32_MAX, dtype=torch.int64,
+                      device=dev)
+    for ci in range(int(n.max()) if n.numel() else 0):
+        live = torch.nonzero(n > ci)[:, 0]
+        for s in range(0, live.numel(), _REF_TILE_BLOCK):
+            idx = live[s:s + _REF_TILE_BLOCK]
+            coef = tab[idx, ci]                           # (n, 5, CF, 4)
+            edges = coef[:, 0:3, :, 0:3].permute(0, 2, 1, 3)  # (n, CF, 3, 3)
+            keep = ~warp_rejects(edges[:, :, None], rects)    # (n, CF, 8)
+            e0 = _affine(coef[:, 0], px, py)
+            e1 = _affine(coef[:, 1], px, py)
+            e2 = _affine(coef[:, 2], px, py)
+            zq = _affine(coef[:, 3], px, py)
+            fid = coef[:, 4, :, 2:3].to(torch.int32)
+            inside = ((e0 >= -EPS) & (e1 >= -EPS) & (e2 >= -EPS)
+                      & keep[:, :, pw])
+            dq = torch.clamp(zq, 0.0, zcap).to(torch.int32)
+            key = raster_lib.shift_key(dq, fb) | fid
+            cand = torch.where(inside, key, torch.full_like(key, INT32_MAX))
+            r = ci % ranks
+            best[r, idx] = torch.minimum(best[r, idx],
+                                         cand.amin(dim=1).to(torch.int64))
+    out = (_combine_ranks(best << 32) >> 32).to(torch.int32)
+    return (out.reshape(B, TY, TX, TILE_H, TILE_W).permute(0, 1, 3, 2, 4)
+            .reshape(B, height, width))
+
+
 def zbuffer(table: torch.Tensor, nchunks: torch.Tensor, height: int,
             width: int, fb: int, depth_levels: int) -> torch.Tensor:
     """Packed z-buffer (B, H, W) int32 from a dense tile table: per pixel
@@ -690,6 +904,17 @@ def zbuffer(table: torch.Tensor, nchunks: torch.Tensor, height: int,
                                  depth_levels)
     if device.type != "cuda":
         raise ValueError(f"zbuffer runs on CUDA or CPU tensors, got {device}")
+    return _zbuffer_launch(table, nchunks, height, width, fb, depth_levels,
+                           cluster_for(B * T))
+
+
+def _zbuffer_launch(table: torch.Tensor, nchunks: torch.Tensor, height: int,
+                    width: int, fb: int, depth_levels: int,
+                    cluster: int) -> torch.Tensor:
+    """:func:`zbuffer`'s kernel launch on CUDA tensors, in clusters of
+    ``cluster`` (1 or 2) blocks a tile."""
+    device = table.device
+    B, T, NC = table.shape[:3]
     _check("table", table, (B, T, NC, 5 * CF, 4), torch.float32, device)
     _check("nchunks", nchunks, (B, T), torch.int32, device)
     if table.data_ptr() % 16:
@@ -701,7 +926,7 @@ def zbuffer(table: torch.Tensor, nchunks: torch.Tensor, height: int,
         err = lib.tpubody_zbuffer(
             table.data_ptr(), nchunks.data_ptr(), zbuf.data_ptr(), B, height,
             width, NC, fb, ctypes.c_float(float(depth_levels - 1)),
-            ctypes.c_void_p(stream))
+            cluster, ctypes.c_void_p(stream))
     native.check(err, "zbuffer launch")
     native.LAUNCHES["zbuffer"] += 1
     return zbuf
