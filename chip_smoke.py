@@ -147,18 +147,50 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                step, and the s2d stem against conv7 (fp32 within 1e-4, and
                both stems' ms in bf16).
 
+  15. fit     — the fitting path (no kernel of the port lies on it: its
+               forward is the differentiable torch-op LBS on a reduced
+               model, as tpubody's is) at full width: the seeded SMPLH
+               stand-in (52 joints, 6890 vertices) with seeded PCA hand
+               bases, a seeded VPoser decoder, 64 frames of seeded poses
+               projected (focal 5000, 1024^2 center) with 2 px noise,
+               through BatchFitter at FitConfig() defaults (VPoser, 12
+               PCA hand components, 30 iterations, 5 stages, both
+               orientation candidates: 128 lanes).  The launch counters
+               are zeroed just before and read just after: every kernel
+               0 times.  Gates: every loss finite; the mean reprojection
+               error after the fit below 0.35x the zero pose's at the
+               true camera (tests/test_fit.py's bar); card vs CPU on 4
+               frames at maxiters=3, TF32 off: losses within rtol 1e-3,
+               pose, betas and camera within 1e-3.  Then fit_sequence on a
+               16-frame clip at blocks 1 and 8 (finite, 16 frames), and
+               gen_smplh once into a temporary directory (conf.yaml,
+               smplh.pkl readable by reconstruct.load_fit_pickle,
+               pre_smplh.pkl, smplh.obj, the overlay PNG);
+  16. fitserve — 8 requests through InferenceServer(buckets=(4,)) ->
+               fit_smplh_step, each held to BatchFitter.apply on its batch
+               of 4 (within 1e-5), latency p50/p99;
+  17. ftiming — tpubody_torch.bench.fit at N=8 and N=64 (ms/frame of the
+               first and of a warm call, the camera stage vs the body
+               stages by CUDA events, objective evaluations an iteration,
+               line-search steps, device-to-host reads), fit_sequence's
+               ms/frame at blocks 1 and 8 (from phase 15), and the card's
+               busy share of a warm N=64 fit at 1 iteration a stage: its
+               device time under torch.profiler over its wall time
+               without the profiler.
+
 It then prints the kernel line (each kernel with the card's name and power
 limit), the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.  It needs one CUDA GPU and no network.
 ``--phases a,b`` runs a subset (names: lbs, serve, bench, raster, video,
-oracle, vtiming, zbuffer, reconstruct, rtiming, stage, backbone, and the
-extra vprofile: a
+oracle, vtiming, zbuffer, reconstruct, rtiming, stage, backbone, fit,
+fitserve, ftiming, and the extra vprofile: a
 torch.profiler pass over the video path) and prints no result line: a
 development aid.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import glob
 import json
 import os
@@ -239,6 +271,17 @@ STAGE_CHAIN_ULPS = 4      # full-width chain of three blocks
 STAGE_CHUNK = 8           # images a call of the plain version at batch 512
 STAGE_LIB_REL = 2e-2      # fused_stage vs the library's bf16 chain
 STEM_ATOL = 1e-4          # s2d vs conv7 stem, fp32 HMR outputs
+FIT_N = 64                # frames of the fit phase (128 lanes)
+FIT_REPROJ = 0.35         # fitted / zero-pose reprojection error
+FIT_CPU_N = 4             # frames of the card-vs-CPU fit
+FIT_CPU_ITERS = 2          # held to the whole-fit bar up to this budget
+FIT_OBJ_RTOL = 1e-5        # objective value, card vs CPU
+FIT_GRAD_REL = 1e-4        # objective gradient, of the largest |g|
+FIT_RTOL = 1e-3           # whole-fit bar: loss rtol; pose/betas/cam_t atol
+FIT_ATOL = 1e-3
+FIT_CLIP = 16             # frames of the fit_sequence clip
+FIT_SERVE_ATOL = 1e-5     # served vs BatchFitter.apply on the same batch
+FIT_PROFILE_ITERS = 1     # iterations a stage of the profiled fit
 DEMO_BETAS = np.array([0.0, 2.5, 0, 0, 0, 0, 0, 0, 0, 0], np.float64)
 PHOTO_BETAS = np.array([0.6, 1.5, 0, 0, 0, 0, 0, 0, 0, 0], np.float64)
 
@@ -2185,8 +2228,285 @@ def phase_backbone(dev):
     }
 
 
+# -- the fitting path (phases 15-17) ----------------------------------------
+def fit_setup(dev):
+    from tpubody_torch import bench
+    from tpubody_torch.fit import vposer as vposer_lib
+
+    model = bench.fit_model(6890, seed=0, device=dev)
+    decoder = vposer_lib.create_decoder(0, device=dev)
+    return model, decoder
+
+
+def hold_fits(a, b, what, rtol=FIT_RTOL, atol=FIT_ATOL):
+    """Two FitBatchOutputs under the whole-fit bar -> the max differences."""
+    d = {"loss_rel": float(np.max(np.abs(a.loss - b.loss)
+                                  / np.maximum(np.abs(b.loss), 1e-9)))}
+    for f in ("pose", "shape", "camera_translation"):
+        d[f] = float(np.abs(getattr(a, f) - getattr(b, f)).max())
+    log(f"  {what}: {d}")
+    if d["loss_rel"] > rtol or max(d[f] for f in
+                                   ("pose", "shape",
+                                    "camera_translation")) > atol:
+        raise RuntimeError(f"{what}: outside the whole-fit bar "
+                           f"(rtol {rtol}, atol {atol}): {d}")
+    return d
+
+
+def fit_objective_diff(model, decoder, cpu_model, cpu_decoder, kps,
+                       center):
+    """The staged objective's value and gradient at the same seeded lane
+    parameters on the card and on the CPU, every stage's weights ->
+    {"value_rel", "grad_rel"} (gradient error over the largest |g|)."""
+    import torch
+
+    from tpubody_torch.fit import smplify
+
+    cfg = smplify.FitConfig()
+    n = kps.shape[0]
+    rng = np.random.default_rng(41)
+    base = {"global_orient": rng.normal(scale=0.2, size=(n, 3)),
+            "betas": rng.normal(scale=0.5, size=(n, 10)),
+            "cam_t": np.array([[0.0, 0.0, 12.0]] * n)
+            + rng.normal(scale=0.05, size=(n, 3)),
+            "lhand": rng.normal(scale=0.5, size=(n, cfg.num_pca_comps)),
+            "rhand": rng.normal(scale=0.5, size=(n, cfg.num_pca_comps)),
+            "pose_embedding": rng.normal(scale=0.5, size=(n, 32))}
+    out = []
+    for m, d, dev in ((model, decoder, model.device),
+                      (cpu_model, cpu_decoder, torch.device("cpu"))):
+        f = smplify.BatchFitter(m, cfg, dec_params=d, device=dev)
+        k = torch.as_tensor(kps, device=dev)
+        c = torch.as_tensor(np.tile(center, (n, 1)), device=dev)
+        res = []
+        for w in f.ws:
+            p = {key: torch.tensor(v, dtype=torch.float32, device=dev,
+                                   requires_grad=True)
+                 for key, v in base.items()}
+            v = f.shared_loss(p, w, k[..., :2], k[..., 2], c)
+            g = torch.autograd.grad(v.sum(), list(p.values()))
+            res.append((v.detach().cpu().numpy(),
+                        np.concatenate([x.cpu().numpy().reshape(n, -1)
+                                        for x in g], axis=1)))
+        out.append(res)
+    value_rel = max(float(np.max(np.abs(a[0] - b[0]) / np.abs(b[0])))
+                    for a, b in zip(*out))
+    grad_rel = max(float(np.abs(a[1] - b[1]).max() / np.abs(b[1]).max())
+                   for a, b in zip(*out))
+    return {"value_rel": value_rel, "grad_rel": grad_rel}
+
+
+def phase_fit(dev, model, decoder, workdir):
+    import torch
+
+    from tpubody_torch import bench, native
+    from tpubody_torch.fit import keypoints as kp_lib
+    from tpubody_torch.fit import smplify
+    from tpubody_torch.pipelines import gen_smplh
+    from tpubody_torch.pipelines import reconstruct as rec
+
+    truth = bench.fit_truth(model, decoder, FIT_N, seed=11)
+    target = bench.project_fit(model, **truth)
+    kps = bench.fit_keypoints(target, seed=11)
+    center = np.full(2, bench.FIT_SIZE / 2.0, np.float32)
+    cfg = smplify.FitConfig()
+
+    native.reset_launches()
+    t0 = time.perf_counter()
+    fitter = smplify.BatchFitter(model, cfg, dec_params=decoder, device=dev)
+    out = fitter(kps, center)
+    torch.cuda.synchronize()
+    fit_ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(native.LAUNCHES)
+    log(f"  kernel launches on the fit path: {launches}")
+    if any(launches.values()):
+        raise RuntimeError(f"the fit path launched a kernel: {launches}")
+    if not np.isfinite(out.loss).all():
+        raise RuntimeError("non-finite fit losses")
+    zero = dict(pose=np.zeros_like(truth["pose"]),
+                betas=np.zeros_like(truth["betas"]), cam_t=truth["cam_t"])
+    base = np.linalg.norm(bench.project_fit(model, **zero) - target,
+                          axis=-1).mean()
+    fitted = np.linalg.norm(bench.project_fit(
+        model, out.pose, out.shape, out.camera_translation) - target,
+        axis=-1).mean()
+    log(f"  {FIT_N} frames: mean reprojection error {fitted:.3f} px after "
+        f"the fit, {base:.3f} px for the zero pose ({fitted / base:.4f}x); "
+        f"mean loss {float(np.mean(out.loss)):.2f}; {fit_ms:.0f} ms "
+        f"({fit_ms / FIT_N:.1f} ms/frame, the first fit); counts "
+        f"{fitter.stats}")
+    if not fitted < FIT_REPROJ * base:
+        raise RuntimeError(f"fit reprojection {fitted} >= {FIT_REPROJ} x "
+                           f"{base}")
+
+    # Card vs CPU, TF32 off (main sets it): the objective and its gradient
+    # at the same seeded parameters, then whole fits of a few frames at
+    # budgets of 1-3 iterations a stage.  fp32 L-BFGS with a line search
+    # amplifies rounding: the fits are held to the whole-fit bar up to
+    # FIT_CPU_ITERS, where they have not parted yet; the 3-iteration
+    # difference is printed (ROADMAP Queue 3, "Sensitivities").
+    cpu_model = model.to("cpu")
+    cpu_decoder = copy.deepcopy(decoder).to("cpu")
+    obj = fit_objective_diff(model, decoder, cpu_model, cpu_decoder,
+                             kps[:FIT_CPU_N], center)
+    log(f"  card vs CPU objective at seeded parameters, 5 stages: {obj}")
+    if obj["value_rel"] > FIT_OBJ_RTOL or obj["grad_rel"] > FIT_GRAD_REL:
+        raise RuntimeError(f"card vs CPU objective: {obj}")
+    cpu_diff = {}
+    for iters in (1, 2, 3):
+        cfgk = smplify.FitConfig(maxiters=iters)
+        gpu = smplify.BatchFitter(model, cfgk, dec_params=decoder,
+                                  device=dev)(kps[:FIT_CPU_N], center)
+        cpu = smplify.BatchFitter(cpu_model, cfgk, dec_params=cpu_decoder,
+                                  device="cpu")(kps[:FIT_CPU_N], center)
+        what = f"card vs CPU, {FIT_CPU_N} frames at maxiters={iters}"
+        if iters <= FIT_CPU_ITERS:
+            cpu_diff[iters] = hold_fits(gpu, cpu, what)
+        else:
+            cpu_diff[iters] = hold_fits(gpu, cpu, what + " (printed only)",
+                                        rtol=np.inf, atol=np.inf)
+
+    seq = {}
+    clip = bench.fit_clip(model, decoder, FIT_CLIP, seed=5)
+    for block in (1, 8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        so = smplify.fit_sequence(model, clip, center, cfg,
+                                  dec_params=decoder, block=block,
+                                  device=dev)
+        ms = 1e3 * (time.perf_counter() - t0)
+        if so.pose.shape != (FIT_CLIP, 156) or not np.isfinite(
+                so.loss).all():
+            raise RuntimeError(f"fit_sequence block {block}: "
+                               f"{so.pose.shape}, losses {so.loss}")
+        seq[block] = {"ms_per_frame": ms / FIT_CLIP,
+                      "mean_loss": float(np.mean(so.loss))}
+        log(f"  fit_sequence T={FIT_CLIP} block {block}: "
+            f"{ms / FIT_CLIP:.1f} ms/frame, mean loss "
+            f"{seq[block]['mean_loss']:.2f}")
+
+    import cv2
+    gdir = os.path.join(workdir, "gen_smplh")
+    os.makedirs(gdir, exist_ok=True)
+    img = np.full((bench.FIT_SIZE, bench.FIT_SIZE, 3), 96, np.uint8)
+    cv2.imwrite(os.path.join(gdir, "img.png"), img)
+    k = kps[0].astype(np.float64)
+    kp_lib.write_openpose_json(os.path.join(gdir, "keypoints.json"),
+                               k[:25], k[25:46], k[46:67])
+    t0 = time.perf_counter()
+    fit = gen_smplh.gen_smplh(os.path.join(gdir, "img.png"),
+                              os.path.join(gdir, "keypoints.json"),
+                              os.path.join(gdir, "out"), model=model,
+                              dec_params=decoder, device=dev)
+    gen_ms = 1e3 * (time.perf_counter() - t0)
+    made = sorted(os.listdir(os.path.join(gdir, "out")))
+    want = ["conf.yaml", "pre_smplh.pkl", "smplh.obj", "smplh.pkl",
+            "smplh2rgb_rend.png"]
+    back = rec.load_fit_pickle(os.path.join(gdir, "out", "smplh.pkl"))
+    if made != want or back.pose.shape != (156,) or not np.allclose(
+            back.pose, fit.pose):
+        raise RuntimeError(f"gen_smplh artifacts {made}, pose "
+                           f"{back.pose.shape}")
+    log(f"  gen_smplh: {gen_ms:.0f} ms, artifacts {made}")
+    return {"launches": launches, "reproj_px": float(fitted),
+            "zero_pose_px": float(base), "cpu_diff": cpu_diff,
+            "sequence": seq, "gen_smplh_ms": gen_ms}
+
+
+def phase_fit_serve(dev, model, decoder):
+    import torch
+
+    from tpubody_torch import bench
+    from tpubody_torch.fit import smplify
+    from tpubody_torch.pipelines import serving
+
+    truth = bench.fit_truth(model, decoder, 8, seed=21)
+    kps = bench.fit_keypoints(bench.project_fit(model, **truth), seed=21)
+    center = np.full(2, bench.FIT_SIZE / 2.0, np.float32)
+    step, spec = serving.fit_smplh_step(model, smplify.FitConfig(),
+                                        dec_params=decoder, device=dev)
+    t0 = time.perf_counter()
+    server = serving.InferenceServer(step, buckets=(4,), request_spec=spec,
+                                     max_delay_ms=200.0, device=dev)
+    warm_ms = 1e3 * (time.perf_counter() - t0)
+    with server:
+        futs = [server.submit({"keypoints": kps[i], "center": center})
+                for i in range(8)]
+        served = [f.result(timeout=600) for f in futs]
+    stats = server.stats.snapshot()
+    worst = 0.0
+    for g in range(2):
+        direct = step(
+            {"keypoints": torch.as_tensor(kps[4 * g:4 * g + 4], device=dev),
+             "center": torch.as_tensor(np.tile(center, (4, 1)),
+                                       device=dev)})
+        for i in range(4):
+            for key in ("pose", "shape", "cam_t", "loss"):
+                d = float(np.abs(served[4 * g + i][key]
+                                 - direct[key][i].cpu().numpy()).max())
+                worst = max(worst, d)
+    log(f"  8 requests in batches of 4: served vs direct max |d| {worst:.3g};"
+        f" warm-up {warm_ms:.0f} ms; latency p50 "
+        f"{stats['latency_p50_ms']:.0f} ms, p99 "
+        f"{stats['latency_p99_ms']:.0f} ms; {stats['batches']} batches")
+    if worst > FIT_SERVE_ATOL:
+        raise RuntimeError(f"served fit differs from the direct one: {worst}")
+    return {"latency_p50_ms": stats["latency_p50_ms"],
+            "latency_p99_ms": stats["latency_p99_ms"],
+            "served_vs_direct": worst, "warmup_ms": warm_ms}
+
+
+def phase_fit_timing(dev, model, decoder, fit_res):
+    from tpubody_torch import bench
+    from tpubody_torch.fit import smplify
+
+    res = {}
+    for n in (8, FIT_N):
+        r = bench.fit(n, model=model, decoder=decoder, device=dev)
+        res[n] = r
+        log(f"  fit_frames N={n}: first {r['first_ms_per_frame']:.1f} "
+            f"ms/frame (setup {r['first_setup_ms']:.1f} ms), warm "
+            f"{r['warm_ms_per_frame']:.1f} ms/frame (setup "
+            f"{r['warm_setup_ms']:.1f} ms); camera stage "
+            f"{r['camera_ms']:.1f} ms, body stages {r['stages_ms']:.1f} ms;"
+            f" counts {json.dumps(r['counts'])}")
+    if fit_res is not None:
+        for block, r in fit_res["sequence"].items():
+            log(f"  fit_sequence T={FIT_CLIP} block {block}: "
+                f"{r['ms_per_frame']:.1f} ms/frame")
+    # The busy share: a warm fit of FIT_N frames at FIT_PROFILE_ITERS
+    # iterations a stage (the profiler traces every kernel: the full
+    # budget's 2 million take minutes), its device time under the
+    # profiler over its wall time without it.
+    truth = bench.fit_truth(model, decoder, FIT_N, seed=31)
+    kps = bench.fit_keypoints(bench.project_fit(model, **truth), seed=31)
+    center = np.full(2, bench.FIT_SIZE / 2.0, np.float32)
+    fitter = smplify.BatchFitter(
+        model, smplify.FitConfig(maxiters=FIT_PROFILE_ITERS),
+        dec_params=decoder, device=dev)
+    fitter(kps, center)                    # captures the graphs
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitter(kps, center)
+    wall = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    busy, n_kernels, top = device_busy(lambda: fitter(kps, center))
+    wall_prof = 1e3 * (time.perf_counter() - t0)
+    log(f"  warm N={FIT_N} fit at maxiters={FIT_PROFILE_ITERS}: wall "
+        f"{wall:.1f} ms; under torch.profiler device busy {busy:.1f} ms "
+        f"({100 * busy / wall:.1f}% of the unprofiled wall; wall "
+        f"{wall_prof:.1f} ms under the profiler), {n_kernels} device "
+        f"kernels and copies, {fitter.stats}; top {top}")
+    res["busy_share"] = busy / wall
+    print(json.dumps({"fit_timing": {str(k): v for k, v in res.items()}}),
+          flush=True)
+    return res
+
+
 ALL_PHASES = ("lbs", "serve", "bench", "raster", "video", "oracle", "vtiming",
-              "zbuffer", "reconstruct", "rtiming", "stage", "backbone")
+              "zbuffer", "reconstruct", "rtiming", "stage", "backbone",
+              "fit", "fitserve", "ftiming")
 EXTRA_PHASES = ("vprofile",)
 
 
@@ -2294,6 +2614,26 @@ def main() -> int:
         log(f"phase 14: the fused stage on the full-width backbone, batch "
             f"{BACKBONE_BATCH}")
         kernels.append(phase_backbone(dev))
+
+    fit_res = None
+    if set(phases) & {"fit", "fitserve", "ftiming"}:
+        fit_model, fit_decoder = fit_setup(dev)
+        fit_dir = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+        try:
+            if "fit" in phases:
+                log(f"phase 15: the fitting path, {FIT_N} frames at "
+                    f"FitConfig() defaults")
+                fit_res = phase_fit(dev, fit_model, fit_decoder, fit_dir)
+                for k in kernels:
+                    k["launches_fit"] = fit_res["launches"][k["name"]]
+        finally:
+            shutil.rmtree(fit_dir, ignore_errors=True)
+        if "fitserve" in phases:
+            log("phase 16: fit_smplh_step behind InferenceServer")
+            phase_fit_serve(dev, fit_model, fit_decoder)
+        if "ftiming" in phases:
+            log("phase 17: fit timing")
+            phase_fit_timing(dev, fit_model, fit_decoder, fit_res)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,5 +1,5 @@
-"""No module of tpubody_torch imports jax, flax or tpubody, and importing
-one builds no kernel.
+"""No module of tpubody_torch imports jax, flax, optax or tpubody, and
+importing one builds no kernel.
 
 One interpreter imports the modules one after another and reports, for
 each, which forbidden packages first appeared in ``sys.modules`` with it
@@ -22,6 +22,15 @@ MODULES = [
     "tpubody_torch.core.fused_lbs",
     "tpubody_torch.core.lbs",
     "tpubody_torch.core.rotations",
+    "tpubody_torch.fit.collision",
+    "tpubody_torch.fit.joints",
+    "tpubody_torch.fit.keypoints",
+    "tpubody_torch.fit.lbfgs",
+    "tpubody_torch.fit.mesh_collision",
+    "tpubody_torch.fit.optim",
+    "tpubody_torch.fit.priors",
+    "tpubody_torch.fit.smplify",
+    "tpubody_torch.fit.vposer",
     "tpubody_torch.image.boundary_match",
     "tpubody_torch.image.contours",
     "tpubody_torch.image.morphology",
@@ -30,6 +39,7 @@ MODULES = [
     "tpubody_torch.image.warp",
     "tpubody_torch.io.motion",
     "tpubody_torch.mesh.decimate",
+    "tpubody_torch.mesh.meshio",
     "tpubody_torch.mesh.rigging",
     "tpubody_torch.models.fused_resnet",
     "tpubody_torch.models.hmr",
@@ -37,14 +47,17 @@ MODULES = [
     "tpubody_torch.models.params",
     "tpubody_torch.models.smpl",
     "tpubody_torch.pipelines.animate",
+    "tpubody_torch.pipelines.gen_smplh",
     "tpubody_torch.pipelines.hmr_infer",
     "tpubody_torch.pipelines.reconstruct",
+    "tpubody_torch.pipelines.refine",
     "tpubody_torch.pipelines.serving",
     "tpubody_torch.render.bodymaps",
     "tpubody_torch.render.camera",
     "tpubody_torch.render.raster",
     "tpubody_torch.render.tiled_raster",
     "tpubody_torch.render.video",
+    "tpubody_torch.render.viewer",
     "tpubody_torch.solve.normal2depth",
     "tpubody_torch.utils.cache",
     "tpubody_torch.utils.profiling",
@@ -52,7 +65,7 @@ MODULES = [
 
 CODE = r"""
 import importlib, json, pkgutil, sys
-FORBIDDEN = ("jax", "jaxlib", "flax", "tpubody")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpubody")
 def bad():
     return {m.split(".")[0] for m in sys.modules} & set(FORBIDDEN)
 seen, report = set(), {}

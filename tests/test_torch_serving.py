@@ -100,13 +100,13 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         serving.hmr_smpl_step(quantize=True, device="cpu")
     with pytest.raises(NotImplementedError):
-        serving.fit_smplh_step()
-    with pytest.raises(NotImplementedError):
         serving.InferenceServer(double_step, image_shape=SHAPE, buckets=(1,),
                                 sharding=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             serving.hmr_smpl_step()       # the card is the default
+        with pytest.raises(RuntimeError, match="cuda"):
+            serving.fit_smplh_step()      # ported: the card is its default
         with pytest.raises(RuntimeError, match="cuda"):
             serving.InferenceServer(double_step, warmup=False)
 

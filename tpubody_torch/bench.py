@@ -9,6 +9,15 @@ fails, the run fails.
 
     python -m tpubody_torch.bench [--batch 512] [--iters 30]
 
+``--fit N [--sequence --block B]`` measures instead the fitting path
+(the counterpart of ``tools/bench_fit.py``): N frames of seeded poses
+through ``fit.smplify.fit_frames`` at ``FitConfig()`` defaults on the
+6890-vertex, 52-joint seeded SMPLH with 12 PCA hand components, first
+call and warm, or a T=N frame clip through chained ``fit_sequence`` at
+block B, and prints its JSON line (ms/frame, mean final loss, the split
+between the camera stage and the body stages, objective evaluations,
+line-search steps and device-to-host reads).
+
 ``--fused-stage {1,2}`` measures instead the fused residual stage
 (``models/fused_resnet.py``, the CUDA kernel ``csrc/fused_stage.cu``)
 against the library's bf16 convolutions on the same stride-1 bottleneck
@@ -18,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -242,6 +252,177 @@ def fused_stage(stage: int = 1, batch: int = BATCH, iters: int = 20,
     return res
 
 
+# -- the fitting path -------------------------------------------------------
+FIT_FOCAL = 5000.0
+FIT_SIZE = 1024           # image side: the principal point is its center
+FIT_NOISE_PX = 2.0
+
+
+def fit_model(n_verts: int = 6890, seed: int = 0,
+              device: DeviceLike = "cuda"):
+    """The fit path's body: the seeded SMPLH stand-in (52 joints) with
+    seeded hand PCA bases (45 components a hand, the fit uses the first
+    ``FitConfig.num_pca_comps``) and hand means."""
+    import dataclasses
+
+    from tpubody_torch.models import params as params_lib
+
+    dev = resolve(device)
+    model = params_lib.load_or_synthetic("smplh", n_joints=52,
+                                         n_verts=n_verts, seed=seed,
+                                         warn=False, device=dev)
+    rng = np.random.default_rng(seed + 1000)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    return dataclasses.replace(
+        model, cache={},
+        hands_components_l=t(rng.normal(scale=0.1, size=(45, 45))),
+        hands_components_r=t(rng.normal(scale=0.1, size=(45, 45))),
+        hands_mean_l=t(rng.normal(scale=0.1, size=45)),
+        hands_mean_r=t(rng.normal(scale=0.1, size=45)))
+
+
+def fit_truth(model, decoder, n: int, seed: int) -> Dict[str, np.ndarray]:
+    """Seeded ground truth for n frames: VPoser-decoded body poses, a global
+    orientation near zero (the fit's start, as in tpubody's fit tests),
+    PCA hand poses, betas and a camera ~12 m away."""
+    from tpubody_torch.fit import vposer as vposer_lib
+
+    dev = model.device
+    rng = np.random.default_rng(seed)
+    z = torch.as_tensor(rng.normal(scale=0.5, size=(n, 32)),
+                        dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        body = vposer_lib.decode_to_axis_angle(decoder, z).cpu().numpy()
+    orient = rng.normal(scale=0.15, size=(n, 3))
+    hands = []
+    for comps, mean in ((model.hands_components_l, model.hands_mean_l),
+                        (model.hands_components_r, model.hands_mean_r)):
+        coeffs = rng.normal(scale=0.5, size=(n, 12))
+        hands.append(mean.cpu().numpy() + coeffs @ comps[:12].cpu().numpy())
+    cam_t = np.stack([rng.normal(scale=0.05, size=n),
+                      rng.normal(scale=0.05, size=n),
+                      12.0 + rng.uniform(-1.0, 1.0, size=n)], axis=1)
+    return {"pose": np.concatenate([orient, body] + hands, axis=1),
+            "betas": rng.normal(scale=0.5, size=(n, 10)),
+            "cam_t": cam_t}
+
+
+def project_fit(model, pose, betas, cam_t) -> np.ndarray:
+    """(n, 67, 2) OpenPose joints of full-model forwards, projected at
+    ``FIT_FOCAL`` about the image center."""
+    from tpubody_torch.fit import joints as joints_lib
+    from tpubody_torch.fit import smplify
+    from tpubody_torch.models import smpl as smpl_lib
+
+    dev = model.device
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=dev)
+
+    n = len(pose)
+    with torch.no_grad():
+        st = smpl_lib.forward(model, t(pose).reshape(n, -1, 3), t(betas))
+        j = joints_lib.openpose_joints(st.verts, st.joints_posed)
+        center = torch.full((n, 2), FIT_SIZE / 2.0, device=dev)
+        return smplify._project(j, t(cam_t), FIT_FOCAL,
+                                center).cpu().numpy()
+
+
+def fit_keypoints(target2d: np.ndarray, seed: int) -> np.ndarray:
+    """Detections: the projected joints plus ``FIT_NOISE_PX`` noise, with
+    confidence 1 -> (n, 67, 3) float32."""
+    rng = np.random.default_rng(seed)
+    noisy = target2d + rng.normal(scale=FIT_NOISE_PX, size=target2d.shape)
+    return np.concatenate([noisy, np.ones(target2d.shape[:-1] + (1,))],
+                          axis=-1).astype(np.float32)
+
+
+def fit_clip(model, decoder, T: int, seed: int) -> np.ndarray:
+    """A smooth T-frame keypoint clip: one seeded pose whose body drifts
+    and turns a little from frame to frame."""
+    truth = fit_truth(model, decoder, 1, seed)
+    rng = np.random.default_rng(seed + 1)
+    steps = np.cumsum(rng.normal(scale=0.02, size=(T, 3)), axis=0)
+    pose = np.repeat(truth["pose"], T, axis=0)
+    pose[:, :3] += steps
+    cam_t = np.repeat(truth["cam_t"], T, axis=0)
+    cam_t[:, :2] += np.cumsum(rng.normal(scale=0.01, size=(T, 2)), axis=0)
+    target = project_fit(model, pose, np.repeat(truth["betas"], T, axis=0),
+                         cam_t)
+    return fit_keypoints(target, seed + 2)
+
+
+def _fit_stats(fitter) -> dict:
+    out = {}
+    for part, st in fitter.stats.items():
+        it = max(st.get("iterations", 0), 1)
+        out[part] = dict(st, evaluations_per_iteration=st.get(
+            "evaluations", 0) / it)
+    return out
+
+
+def fit(n: int = 64, sequence: bool = False, block: int = 1,
+        n_verts: int = 6890, device: DeviceLike = "cuda",
+        model=None, decoder=None) -> dict:
+    """Time the fitting path on the card: ``fit_frames`` on n frames (a
+    first call, then a warm call on other frames), or chained
+    ``fit_sequence`` on an n-frame clip at ``block``."""
+    from tpubody_torch.fit import smplify
+    from tpubody_torch.fit import vposer as vposer_lib
+
+    dev = resolve(device)
+    if dev.type != "cuda":
+        raise RuntimeError("the benchmark measures the GPU; device must be "
+                           "CUDA")
+    model = model if model is not None else fit_model(n_verts, device=dev)
+    decoder = decoder if decoder is not None else \
+        vposer_lib.create_decoder(0, device=dev)
+    cfg = smplify.FitConfig()
+    center = np.array([FIT_SIZE / 2.0, FIT_SIZE / 2.0], np.float32)
+    res = {"mode": "sequence" if sequence else "frames", "verts": n_verts,
+           "stages": len(cfg.body_pose_prior_weights),
+           "maxiters": cfg.maxiters, "device": torch.cuda.get_device_name(dev)}
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    if sequence:
+        kps = fit_clip(model, decoder, n, seed=5)
+        out, ms = timed(lambda: smplify.fit_sequence(
+            model, kps, center, cfg, dec_params=decoder, block=block,
+            device=dev))
+        res.update(T=n, block=block, ms_per_frame=ms / n,
+                   mean_loss=float(np.mean(out.loss)),
+                   losses_finite=bool(np.isfinite(out.loss).all()))
+        return res
+    for label, seed in (("first", 1), ("warm", 2)):
+        kps = fit_keypoints(project_fit(model, **fit_truth(
+            model, decoder, n, seed)), seed)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fitter = smplify.BatchFitter(model, cfg, dec_params=decoder,
+                                     device=dev)
+        setup_ms = 1e3 * (time.perf_counter() - t0)
+        out = fitter(kps, center)
+        ms = 1e3 * (time.perf_counter() - t0)
+        res[f"{label}_ms_per_frame"] = ms / n
+        res[f"{label}_setup_ms"] = setup_ms
+    cam_ms, stages_ms = fitter.split_ms()
+    res.update(N=n, mean_loss=float(np.mean(out.loss)),
+               losses_finite=bool(np.isfinite(out.loss).all()),
+               camera_ms=cam_ms, stages_ms=stages_ms,
+               counts=_fit_stats(fitter))
+    return res
+
+
 @torch.inference_mode()
 def run(batch: int = BATCH, iters: int = ITERS, warmup: int = WARMUP,
         device: DeviceLike = "cuda") -> dict:
@@ -294,7 +475,17 @@ def main(argv=None) -> None:
                     help="fuse only the first N blocks (0 = whole chain)")
     ap.add_argument("--what", default="both",
                     choices=("both", "fused", "library", "parity"))
+    ap.add_argument("--fit", type=int, default=None, metavar="N",
+                    help="measure the fitting path on N frames instead")
+    ap.add_argument("--sequence", action="store_true",
+                    help="with --fit: a chained fit_sequence of N frames")
+    ap.add_argument("--block", type=int, default=1,
+                    help="with --fit --sequence: frames a chained block")
     args = ap.parse_args(argv)
+    if args.fit:
+        print(json.dumps(fit(args.fit, args.sequence, args.block,
+                             device=args.device)))
+        return
     if args.fused_stage:
         print(json.dumps(fused_stage(args.fused_stage, args.batch, args.iters,
                                      args.blocks, args.what, args.device)))

@@ -41,6 +41,21 @@ def make_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom], dim=-2)
 
 
+_PARENT_INDEX: dict = {}
+
+
+def _parent_index(parents: Sequence[int], device) -> torch.Tensor:
+    """The parent of every joint (the root its own) as an index tensor on
+    ``device``, built once: indexing with a host list would copy it to
+    the card on every call, which a captured CUDA graph cannot hold."""
+    key = (tuple(int(p) for p in parents), str(device))
+    t = _PARENT_INDEX.get(key)
+    if t is None:
+        t = _PARENT_INDEX[key] = torch.tensor(
+            [0] + [int(p) for p in parents[1:]], device=device)
+    return t
+
+
 def forward_kinematics(
     R: torch.Tensor, joints: torch.Tensor, parents: Sequence[int]
 ) -> torch.Tensor:
@@ -56,8 +71,7 @@ def forward_kinematics(
       G[i] = G[parent[i]] @ [Ri | j_i - j_parent].
     """
     J = len(parents)
-    parr = [0] + [int(p) for p in parents[1:]]
-    rel_t = joints - joints[..., parr, :]
+    rel_t = joints - joints[..., _parent_index(parents, joints.device), :]
     rel_t = torch.cat([joints[..., :1, :], rel_t[..., 1:, :]], dim=-2)
     rel_t = rel_t.expand(R.shape[:-2] + (3,))
     A = make_se3(R, rel_t)  # local transforms (..., J, 4, 4)

@@ -1,5 +1,7 @@
-"""HMR preprocessing on the host (port of the crop/normalise part of
-``tpubody.image.ops``).
+"""Image file IO and HMR preprocessing on the host (port of the IO and
+crop/normalise parts of ``tpubody.image.ops``).
+
+``read_image`` / ``write_image`` go through cv2, imported at first use.
 
 ``scale_and_crop`` resizes with ``torch.nn.functional.interpolate``
 (bilinear, half-pixel centres, no antialiasing), the same sampling as the
@@ -13,6 +15,24 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def read_image(path: str, rgb: bool = True) -> np.ndarray:
+    """Read an image file -> (H, W, 3) uint8 (RGB by default)."""
+    import cv2
+    img = cv2.imread(path, cv2.IMREAD_COLOR)
+    if img is None:
+        raise FileNotFoundError(path)
+    return img[:, :, ::-1].copy() if rgb else img
+
+
+def write_image(path: str, img: np.ndarray, rgb: bool = True) -> None:
+    """Write (H, W, 3) uint8, or float in [0, 1], to an image file."""
+    import cv2
+    a = np.asarray(img)
+    if a.dtype != np.uint8:
+        a = (np.clip(a, 0, 1) * 255).astype(np.uint8)
+    cv2.imwrite(path, a[:, :, ::-1] if (rgb and a.ndim == 3) else a)
 
 
 def scale_and_crop(img: np.ndarray, center: Sequence[float],

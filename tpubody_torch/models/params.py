@@ -127,6 +127,59 @@ class BodyModelParams:
         return self._map(lambda t: t.to(dtype))
 
 
+def restrict_model(
+    model: BodyModelParams, vert_ids
+) -> Tuple[BodyModelParams, np.ndarray]:
+    """Exact reduced model for fits that consume only joints + a few
+    surface vertices (port of ``tpubody.models.params.restrict_model``).
+
+    The first J rows of the reduced vertex arrays are *virtual joint
+    vertices* carrying the collapsed regression ``J_regressor @
+    v_template`` / ``J_regressor @ shapedirs`` (computed in float64 and
+    cast once) with one-hot skinning weights, so ``lbs()`` regresses the
+    joints from them through an identity regressor; the remaining rows
+    are the requested vertex rows gathered unchanged.  Every LBS output is
+    exact: the joints and transforms match the full model, and
+    ``verts[rows[i]] == verts_full[vert_ids[i]]`` for all (pose, beta).
+
+    Fold SMPL-X expression dirs into ``shapedirs`` before restricting: the
+    reduced model drops ``expr_dirs`` and the landmark tables.
+
+    Returns ``(reduced, rows)`` with ``rows[i]`` the reduced-verts row of
+    ``vert_ids[i]`` (duplicates in ``vert_ids`` share a row).
+    """
+    ids = np.asarray(vert_ids, np.int64).reshape(-1)
+    uniq, inv = np.unique(ids, return_inverse=True)
+    nj = model.num_joints
+    jr = model.j_regressor.detach().cpu().double().numpy()
+    j_template = jr @ model.v_template.detach().cpu().double().numpy()
+    j_shapedirs = np.einsum(
+        "jv,vcs->jcs", jr, model.shapedirs.detach().cpu().double().numpy())
+    eye_j = np.eye(nj, dtype=np.float32)
+    dtype, dev = model.v_template.dtype, model.device
+    sel = torch.as_tensor(uniq, device=dev)
+
+    def cat(head, body: torch.Tensor) -> torch.Tensor:
+        return torch.cat([torch.as_tensor(head, dtype=dtype, device=dev),
+                          body[sel].to(dtype)], dim=0)
+
+    reduced = dataclasses.replace(
+        model,
+        v_template=cat(j_template, model.v_template),
+        shapedirs=cat(j_shapedirs, model.shapedirs),
+        posedirs=cat(np.zeros((nj,) + tuple(model.posedirs.shape[1:]),
+                              np.float32), model.posedirs),
+        weights=cat(eye_j, model.weights),
+        j_regressor=torch.as_tensor(
+            np.concatenate([eye_j, np.zeros((nj, uniq.size), np.float32)],
+                           axis=1), dtype=dtype, device=dev),
+        faces=np.zeros((0, 3), np.int64),
+        expr_dirs=None, lmk_faces_idx=None, lmk_bary_coords=None,
+        cache={},
+    )
+    return reduced, (nj + inv).astype(np.int64)
+
+
 def _densify(x) -> np.ndarray:
     """Convert scipy-sparse / chumpy / numpy inputs to dense float64 numpy."""
     if hasattr(x, "toarray"):  # scipy sparse

@@ -1,17 +1,18 @@
 """HMR single-image inference (port of ``tpubody.pipelines.hmr_infer``).
 
-Images -> HMR (ResNet-50 + IEF) -> SMPL LBS -> posed meshes and cameras.
-Reading image files (``from_files``) waits for an image decoder in the
-port.
+Images -> HMR (ResNet-50 + IEF) -> SMPL LBS -> posed meshes and cameras;
+``from_files`` reads, crops and normalises image files first (cv2).
 """
 from __future__ import annotations
 
 import sys
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from tpubody_torch.device import DeviceLike, resolve
+from tpubody_torch.image import ops as image_ops
 from tpubody_torch.models import hmr as hmr_lib
 from tpubody_torch.models import params as params_lib
 from tpubody_torch.models import smpl as smpl_lib
@@ -66,6 +67,22 @@ class HMRPredictor:
         return HMRInferenceResult(
             verts=state.verts, rotmats=out.rotmats, shape=out.shape,
             cam=out.cam, cam_t=cam_t)
+
+    def from_files(self, paths: Sequence[str],
+                   centers=None, scales=None) -> HMRInferenceResult:
+        """Read, crop (center-crop by default), normalise, and infer."""
+        crops = []
+        for i, p in enumerate(paths):
+            img = image_ops.read_image(p)
+            H, W = img.shape[:2]
+            center = (centers[i] if centers is not None
+                      else np.array([W / 2, H / 2]))
+            scale = (scales[i] if scales is not None
+                     else max(H, W) / 200.0)
+            crops.append(image_ops.scale_and_crop(
+                img, center, scale, self.img_size))
+        batch = image_ops.normalize_for_hmr(np.stack(crops))
+        return self(torch.as_tensor(batch, dtype=torch.float32))
 
     def load_torch_checkpoint(self, path: str) -> None:
         """Load a reference torch HMR checkpoint.  The file is unpickled:

@@ -126,9 +126,54 @@ def hmr_smpl_step(dtype: torch.dtype = torch.bfloat16, n_joints: int = 24,
     return HMRSMPLStep(model, body, dev, image_size)
 
 
-def fit_smplh_step(*args, **kwargs):
-    """Fitting-as-a-service waits for the port of the fitting slice."""
-    raise NotImplementedError("fit_smplh_step is not ported yet")
+class FitSMPLHStep:
+    """Fitting as a service: a batch of keypoint requests {"keypoints" (B,
+    n_kp, 3), "center" (B, 2)} -> ``BatchFitter.apply``'s per-lane dict
+    {"pose", "shape", "cam_t", "emb", "loss", "expression"}.  The fit
+    differentiates its objective, so the step leaves inference mode (the
+    server warms up under it) and works on its own copies of the
+    requests."""
+
+    def __init__(self, fitter):
+        self.fitter = fitter
+
+    def __call__(self, req):
+        with torch.inference_mode(False):
+            return self.fitter.apply(req["keypoints"].clone(),
+                                     req["center"].clone())
+
+
+def fit_smplh_step(model=None, config=None, dec_params=None,
+                   device: DeviceLike = "cuda"):
+    """Fitting-as-a-service: keypoint requests -> staged SMPLH fits.
+
+    Returns ``(step, request_spec)`` for :class:`InferenceServer`: each
+    request is ``{"keypoints": (n_kp, 3) f32, "center": (2,) f32}`` (the
+    OpenPose layout fit.keypoints reads) and each response slice is the
+    per-request dict ``{"pose" (156,), "shape" (10,), "cam_t" (3,),
+    "emb" (32,), "loss" (), "expression"}``.
+
+    Keep ``buckets`` SMALL (e.g. ``(4,)``): the server's warm-up runs one
+    whole fit per bucket."""
+    from tpubody_torch.fit import smplify
+    from tpubody_torch.pipelines import gen_smplh as gen_lib
+
+    dev = resolve(device)
+    config = config or smplify.FitConfig()
+    model = model if model is not None else gen_lib.default_fit_model(
+        config, device=dev)
+    fitter = smplify.BatchFitter(model, config, dec_params=dec_params,
+                                 device=dev)
+    # Keypoint-row contract per family: BODY_25 + hands + SMPL-X face rows
+    # (the layout fit.keypoints.read_openpose_json/joint_weights use).
+    n_kp = 25
+    if model.num_joints in (52, 55) and config.use_hands:
+        n_kp += 42
+    if model.num_joints == 55 and config.use_face:
+        n_kp += 51 + 17 * config.use_face_contour
+    spec = {"keypoints": TensorSpec((n_kp, 3), np.float32),
+            "center": TensorSpec((2,), np.float32)}
+    return FitSMPLHStep(fitter), spec
 
 
 # -- the server -------------------------------------------------------------
