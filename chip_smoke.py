@@ -90,8 +90,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                finite depths that are zero outside the mask, the
                rasterize_tiled map equal to the fused one's within 2e-3 on
                99.9% of the pixels.  The same path at 256^2 on the card
-               and on the CPU, within the tests' tolerances, and through
-               the public reconstruct(), which must raise at the stitch;
+               and on the CPU, within the tests' tolerances;
   12. rtiming — CUDA-event spans of the stages and the warp's substages in
                a second run of the helper, the card's busy share of
                normal2depth and of the warp under torch.profiler, the
@@ -178,12 +177,39 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                device time under torch.profiler over its wall time
                without the profiler.
 
+  18. rwhole  — the whole public reconstruct() at full width with the hand
+               graft: demo.make_fixture's humanoid (6890 vertices) at
+               1024^2 written as the reference's fixture directory, read
+               by load_test_dir, then reconstruct(..., replace_hands=True)
+               with the cache off (twice; the second with
+               TPUBODY_DETAIL=1, whose stitch/* substages it prints) and
+               on.  The launch counters are zeroed just before each run
+               and read just after: fused_raster 3, the others 0 (the
+               kernel line's launches_reconstruct).  Gates: the hands were
+               grafted, finite avatar, weights summing to 1, and
+               points.npy, faces.npy, J_3d.npy, the avatar pickle, out.ply
+               and out.glb (with the cache on, the device stages' files
+               too) load back to the result.  Stage times, shares of the
+               warm run, stitched vertex and face counts.  Then at 256^2:
+               the host half (stitch, rig, graft) on the same pulled
+               device outputs with the card and with the CPU (mesh and
+               joints equal, avatar within 1e-4), and the whole chain on
+               the card against the CPU (the bars of phase 11 on the
+               stitched positions and joints, the avatar's joints within
+               1% of its extent);
+  19. demo    — demo.run_demo at 256^2 with an 8-frame animation: every
+               artefact exists (an MP4 and a GLB among them), the hands
+               were grafted, fused_raster launched 3 times for the body
+               maps and at least once for the one block of video (a base
+               pass and the ladder rungs the avatar needs; launches_demo),
+               no other kernel.
+
 It then prints the kernel line (each kernel with the card's name and power
 limit), the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.  It needs one CUDA GPU and no network.
 ``--phases a,b`` runs a subset (names: lbs, serve, bench, raster, video,
 oracle, vtiming, zbuffer, reconstruct, rtiming, stage, backbone, fit,
-fitserve, ftiming, and the extra vprofile: a
+fitserve, ftiming, rwhole, demo, and the extra vprofile: a
 torch.profiler pass over the video path) and prints no result line: a
 development aid.
 """
@@ -246,8 +272,20 @@ DEPTH_REL = 1e-3          # card vs CPU depth, of the depth range
 WEIGHT_ATOL = 1e-3        # card vs CPU stitch weights (they cross as f16)
 CHAIN_MEAN_REL = 1e-2     # free-running chain: mean depth difference
 TIGHT_SHARE = 0.999       # share of pixels held to the tight bars
-# The demo fixture of the reconstruct pipeline: body shape (girth +2.5
-# keeps the forearms several pixels wide) and the shape of the "photo".
+WHOLE_VERTS = 6890        # the demo fixture's humanoid in phases 18-19
+DEMO_SIZE = 256
+DEMO_FRAMES = 8
+# The host half card vs CPU on the same pulled device outputs: the stitch
+# is numpy on the host (the card only closes the mask, max pools: exact),
+# so mesh and joints are equal; the rig's SMPL forwards run in float32 on
+# each device, and their last bits reach the avatar through the float64
+# repose and inverse LBS: BASELINE.json's vertex bar.
+HOST_AVATAR_ATOL = 1e-4
+# The whole chain card vs CPU: the depth maps differ as in phase 11 (tight
+# bars on 99.9% of the pixels, 1% of the range on average), so the
+# stitched positions are held the same way, the recovered joints within 1%
+# of the depth range, and the avatar's joints within 1% of its extent.
+SHAPE_SHARE = 1e-3        # stitched vertex counts, card vs CPU, if unequal
 BACKBONE_BATCH = 512
 TAIL_BATCH = 512          # phase 13's stage 3 and 4 tails
 # fused_stage vs its plain version.  Both round h1, h2 and y to bf16 at the
@@ -282,7 +320,8 @@ FIT_ATOL = 1e-3
 FIT_CLIP = 16             # frames of the fit_sequence clip
 FIT_SERVE_ATOL = 1e-5     # served vs BatchFitter.apply on the same batch
 FIT_PROFILE_ITERS = 1     # iterations a stage of the profiled fit
-DEMO_BETAS = np.array([0.0, 2.5, 0, 0, 0, 0, 0, 0, 0, 0], np.float64)
+# The shape of the in-memory fixture's "photo" (the fit's shape is
+# tpubody_torch.pipelines.demo.DEMO_BETAS).
 PHOTO_BETAS = np.array([0.6, 1.5, 0, 0, 0, 0, 0, 0, 0, 0], np.float64)
 
 
@@ -1254,23 +1293,6 @@ def phase_video_profile(setup, workdir):
 
 
 # -- the reconstruct path ----------------------------------------------------
-def demo_pose(n_joints=52, seed=0):
-    """The demo fixture's pose: upright in image coordinates, arms a little
-    below the T-pose and clear of the torso, knees slightly bent, a small
-    seeded jitter."""
-    rng = np.random.default_rng(seed)
-    pose = np.zeros((n_joints, 3))
-    pose[0] = [np.pi, 0.0, 0.0]
-    pose[16] = [0.0, 0.0, -0.22]
-    pose[17] = [0.0, 0.0, 0.22]
-    pose[18] = [0.0, 0.0, -0.12]
-    pose[19] = [0.0, 0.0, 0.12]
-    pose[4] = [0.08, 0.0, 0.0]
-    pose[5] = [0.08, 0.0, 0.0]
-    pose[1:22] += rng.normal(scale=0.015, size=(21, 3))
-    return pose
-
-
 class ReconSetup:
     """The demo fixture in memory on ``dev``: the two humanoid models at
     SMPL's size, the fit (pose, betas, a camera centred on the posed body:
@@ -1281,13 +1303,13 @@ class ReconSetup:
         import torch
 
         from tpubody_torch.models import humanoid, smpl
-        from tpubody_torch.pipelines import reconstruct as rec
+        from tpubody_torch.pipelines import demo, reconstruct as rec
         from tpubody_torch.render import bodymaps
 
         self.dev, self.size = dev, size
         self.smplh = humanoid.humanoid(52, n_verts, device=dev)
         self.smpl = humanoid.humanoid(24, n_verts, device=dev)
-        pose = demo_pose(52, 0)
+        pose = demo.demo_pose(52, 0)
 
         def posed(betas):
             return smpl.forward(
@@ -1295,7 +1317,7 @@ class ReconSetup:
                 torch.as_tensor(pose, dtype=torch.float32, device=dev),
                 torch.as_tensor(betas, dtype=torch.float32, device=dev)).verts
 
-        self.verts = posed(DEMO_BETAS)
+        self.verts = posed(demo.DEMO_BETAS)
         v = self.verts.cpu().numpy().astype(np.float64)
         focal = 5000.0 * size / 1024.0
         center = np.array([size / 2.0, size / 2.0])
@@ -1304,7 +1326,8 @@ class ReconSetup:
         cam_t = np.array([-c[0], -c[1],
                           extent * focal / (0.85 * size) - c[2]])
         self.fit = rec.FitResult(
-            shape=DEMO_BETAS, pose=pose.reshape(-1), camera_center=center,
+            shape=demo.DEMO_BETAS, pose=pose.reshape(-1),
+            camera_center=center,
             camera_rotation=np.eye(3), camera_translation=cam_t,
             camera_fx=focal)
         photo = bodymaps.render_body_maps(
@@ -1520,7 +1543,6 @@ def phase_reconstruct(recon, workdir):
     import torch
 
     from tpubody_torch import native
-    from tpubody_torch.pipelines import reconstruct as rec
     from tpubody_torch.render import tiled_raster as TR
 
     dev = recon.dev
@@ -1610,17 +1632,6 @@ def phase_reconstruct(recon, workdir):
         raise RuntimeError("the card disagrees with the CPU on equal "
                            "silhouettes")
 
-    # The public entry point runs the same stages and stops at the stitch.
-    rgb = np.zeros((RECON_SMALL, RECON_SMALL, 3), np.uint8)
-    try:
-        rec.reconstruct(rgb, rgb, small.mask_u8, small.fit, small.smplh,
-                        small.smpl, cache=False)
-    except NotImplementedError as e:
-        log(f"  reconstruct() ran its device stages and raised: "
-            f"{str(e)[:60]}...")
-    else:
-        raise RuntimeError("reconstruct() returned: the stitch stage is "
-                           "not ported")
     return dict(launches=launches, wall_s=wall, pcg=keep["pcg"])
 
 
@@ -1812,6 +1823,258 @@ def phase_recon_timing(recon, workdir, recon_res, zbuffer_diffs):
         "passes": zb,
     }
     return entry, fused
+
+
+# -- the whole reconstruction and the demo (phases 18-19) --------------------
+def stage_split(timer):
+    """A StageTimer's records -> (top-level stage seconds, substage
+    seconds): substages are the names with a '/' (TPUBODY_DETAIL=1)."""
+    top, sub = {}, {}
+    for r in timer.records:
+        d = sub if "/" in r["stage"] else top
+        d[r["stage"]] = d.get(r["stage"], 0.0) + r["seconds"]
+    return top, sub
+
+
+def check_artifacts(out_dir, res, replace_hands, cache, what):
+    """The files a reconstruction writes exist and load back."""
+    from tpubody_torch.mesh import gltf, meshio, rigging
+
+    pkl = "replace_hands_recover.pkl" if replace_hands else "or_recover.pkl"
+    names = ["points.npy", "faces.npy", "J_3d.npy", pkl, "out.ply",
+             "out.glb"]
+    if cache:
+        names += ["smplh_value.npy", "warp_and_filled.npy",
+                  "depth_front.npy", "depth_back.npy"]
+    missing = [n for n in names if not os.path.exists(
+        os.path.join(out_dir, n))]
+    if missing:
+        raise RuntimeError(f"{what}: missing artefacts {missing}")
+    avatar = rigging.load_avatar(os.path.join(out_dir, pkl))
+    verts, faces, _ = meshio.read_ply(os.path.join(out_dir, "out.ply"))
+    g, _ = gltf.read_glb(os.path.join(out_dir, "out.glb"))
+    if (not np.array_equal(avatar.v_template, res.avatar.v_template)
+            or not np.array_equal(faces, res.faces)
+            or np.abs(verts - res.points[:, :3]).max() > 1e-3
+            or len(g["skins"][0]["joints"]) != 24
+            or not np.array_equal(np.load(os.path.join(out_dir,
+                                                       "points.npy")),
+                                  res.points)):
+        raise RuntimeError(f"{what}: the artefacts do not load back to the "
+                           f"result")
+
+
+def check_result(res, what, graft=True):
+    """A finite avatar with normalised weights; with ``graft`` the hands
+    were grafted (the avatar has more vertices than the stitched mesh)."""
+    a = res.avatar
+    grafted = a.v_template.shape[0] > res.points.shape[0]
+    if (not np.isfinite(a.v_template).all() or not np.isfinite(a.joints).all()
+            or np.abs(a.weights.sum(axis=1) - 1.0).max() > 1e-6
+            or res.points.shape[1] != 30 or grafted != graft):
+        raise RuntimeError(f"{what}: bad avatar (grafted {grafted})")
+    return dict(stitched_vertices=int(res.points.shape[0]),
+                stitched_faces=int(res.faces.shape[0]),
+                avatar_vertices=int(a.v_template.shape[0]),
+                avatar_faces=int(a.faces.shape[0]))
+
+
+def phase_reconstruct_whole(dev, workdir):
+    """The public reconstruct() at full width with the hand graft, cache
+    off (twice) then on; the host half on the card against the CPU on the
+    same pulled device outputs, and the whole chain card against CPU, at
+    RECON_SMALL."""
+    import torch
+
+    from tpubody_torch import native
+    from tpubody_torch.pipelines import demo, reconstruct as rec
+    from tpubody_torch.utils.cache import StageCache
+    from tpubody_torch.utils.profiling import StageTimer
+
+    S = RECON_SIZE
+    t0 = time.perf_counter()
+    fixture = os.path.join(workdir, "whole_fixture")
+    smplh, smpl = demo.make_fixture(fixture, size=S, verts=WHOLE_VERTS,
+                                    device=dev)
+    front, back, mask, fit = rec.load_test_dir(fixture)
+    log(f"  demo.make_fixture at {S}^2, {WHOLE_VERTS} vertices: "
+        f"{time.perf_counter() - t0:.2f} s; mask {(mask > 0).mean() * 100:.2f}"
+        f"% of the frame")
+
+    runs, meshes = [], []
+    for i, (cache, detail) in enumerate(((False, False), (False, True),
+                                         (True, True))):
+        out_dir = os.path.join(workdir, f"whole_{i}")
+        timer = StageTimer()
+        if detail:
+            os.environ["TPUBODY_DETAIL"] = "1"
+        try:
+            native.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = rec.reconstruct(front, back, mask, fit, smplh, smpl,
+                                  out_dir=out_dir, replace_hands=True,
+                                  cache=cache, timer=timer, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(native.LAUNCHES)
+        finally:
+            os.environ.pop("TPUBODY_DETAIL", None)
+        what = f"reconstruct {S}^2 cache {'on' if cache else 'off'} #{i}"
+        counts = check_result(res, what)
+        check_artifacts(out_dir, res, True, cache, what)
+        want = {k: (3 if k == "fused_raster" else 0) for k in launches}
+        if launches != want:
+            raise RuntimeError(f"{what}: launches {launches}, expected "
+                               f"{want}")
+        top, sub = stage_split(timer)
+        meshes.append(res)
+        runs.append(dict(cache=cache, detail=detail, wall_s=wall,
+                         stage_s=top, substage_s=sub, launches=launches,
+                         **counts))
+        log(f"  {what}: {wall:.3f} s; launches {launches}; {counts}")
+        log("    stages, s: " + ", ".join(f"{k} {v:.4f}"
+                                          for k, v in top.items()))
+        if sub:
+            log("    substages, s: " + ", ".join(f"{k} {v:.4f}"
+                                                 for k, v in sub.items()))
+    # The same inputs twice with the cache off: is the card's chain
+    # deterministic?  (Printed, not gated: tpubody makes no such promise.)
+    a, b = meshes[0], meshes[1]
+    same = a.points.shape == b.points.shape and bool(
+        np.array_equal(a.points, b.points))
+    log(f"  cache-off runs #0 and #1: stitched points "
+        f"{'equal' if same else 'differ'}"
+        + ("" if same or a.points.shape != b.points.shape else
+           f" (max|d| {np.abs(a.points - b.points).max(axis=0)[:3]})")
+        + f"; avatars of {a.avatar.v_template.shape[0]} and "
+        f"{b.avatar.v_template.shape[0]} vertices")
+    warm = runs[1]["stage_s"]
+    total = sum(warm.values())
+    log("  warm run, shares: " + ", ".join(
+        f"{k} {v / total * 100:.1f}%" for k, v in warm.items()))
+
+    # The host half on the same pulled device outputs, card and CPU.
+    small = os.path.join(workdir, "small_fixture")
+    smplh_s, smpl_s = demo.make_fixture(small, size=RECON_SMALL,
+                                        verts=WHOLE_VERTS, device=dev)
+    front_s, back_s, mask_s, fit_s = rec.load_test_dir(small)
+    sc = StageCache(os.path.join(workdir, "small_cache"), enabled=False)
+    pulled = rec._device_stages(mask_s, fit_s, smplh_s, smpl_s, sc,
+                                StageTimer(), None)
+    host = {}
+    for name, model in (("card", smpl_s), ("cpu", smpl_s.to("cpu"))):
+        host[name] = rec._host_stages(front_s, back_s, fit_s, model, *pulled,
+                                      sc, False, True, StageTimer(), None)
+    g, c = host["card"], host["cpu"]
+    graft = g.avatar.v_template.shape[0] > g.points.shape[0]
+    check_result(g, f"host half on the card at {RECON_SMALL}^2", graft)
+    check_result(c, f"host half on the CPU at {RECON_SMALL}^2", graft)
+    same_mesh = (np.array_equal(g.points, c.points)
+                 and np.array_equal(g.faces, c.faces)
+                 and np.array_equal(g.joints3d, c.joints3d))
+    host_diff = {}
+    if g.avatar.v_template.shape == c.avatar.v_template.shape:
+        host_diff = {k: float(np.abs(getattr(g.avatar, k)
+                                     - getattr(c.avatar, k)).max())
+                     for k in ("v_template", "joints", "weights", "or_pose")}
+    log(f"  host half at {RECON_SMALL}^2 on the card's pulled outputs, card "
+        f"vs CPU: stitched mesh and joints {'equal' if same_mesh else 'DIFFER'}"
+        f"; hands grafted {graft}; avatar max|d| {host_diff}")
+    if (not same_mesh or not host_diff
+            or max(host_diff.values()) > HOST_AVATAR_ATOL
+            or not np.array_equal(g.avatar.faces, c.avatar.faces)):
+        raise RuntimeError("the host half on the card disagrees with the "
+                           "CPU on the same inputs")
+
+    # The whole chain, card against CPU.
+    chain = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        chain[name] = rec.reconstruct(front_s, back_s, mask_s, fit_s,
+                                      smplh_s, smpl_s, replace_hands=True,
+                                      cache=False, device=d)
+    g, c = chain["card"], chain["cpu"]
+    for name, r in chain.items():
+        check_result(r, f"reconstruct {RECON_SMALL}^2 on the {name}",
+                     r.avatar.v_template.shape[0] > r.points.shape[0])
+    same_count = g.points.shape == c.points.shape and \
+        np.array_equal(g.faces, c.faces)
+    log(f"  whole chain at {RECON_SMALL}^2, card vs CPU: stitched "
+        f"{g.points.shape[0]} vs {c.points.shape[0]} vertices, faces "
+        f"{'equal' if same_count else 'differ'}")
+    whole_diff = {}
+    if same_count:
+        rng = float(np.ptp(c.points[:, 2]))
+        dp = np.abs(g.points[:, :3] - c.points[:, :3]).max(axis=1)
+        whole_diff = dict(
+            position_max=float(dp.max()), position_mean=float(dp.mean()),
+            range=rng, tight_share=float((dp <= DEPTH_REL * rng).mean()),
+            joints3d=float(np.abs(g.joints3d - c.joints3d).max()))
+        extent = float(np.ptp(c.avatar.v_template, axis=0).max())
+        whole_diff["avatar_joints"] = float(
+            np.abs(g.avatar.joints - c.avatar.joints).max())
+        whole_diff["avatar_extent"] = extent
+        log(f"    {whole_diff}")
+        if (whole_diff["tight_share"] < TIGHT_SHARE
+                or whole_diff["position_mean"] > CHAIN_MEAN_REL * rng
+                or whole_diff["joints3d"] > CHAIN_MEAN_REL * rng
+                or whole_diff["avatar_joints"] > CHAIN_MEAN_REL * extent):
+            raise RuntimeError("the whole chain on the card disagrees with "
+                               "the CPU")
+    elif abs(g.points.shape[0] - c.points.shape[0]) \
+            > SHAPE_SHARE * c.points.shape[0]:
+        raise RuntimeError("the card's stitched mesh differs in size from "
+                           "the CPU's")
+    return dict(size=S, verts=WHOLE_VERTS, runs=runs,
+                host_half_card_vs_cpu=host_diff,
+                whole_chain_card_vs_cpu=whole_diff,
+                launches=runs[0]["launches"])
+
+
+def phase_demo(dev, workdir):
+    """run_demo at DEMO_SIZE with an 8-frame animation, through the
+    fused_raster kernel on both of its paths."""
+    import torch
+
+    from tpubody_torch import native
+    from tpubody_torch.mesh import gltf, meshio, rigging
+    from tpubody_torch.pipelines import demo
+
+    out = os.path.join(workdir, "demo")
+    native.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arts = demo.run_demo(out, size=DEMO_SIZE, animate_frames=DEMO_FRAMES,
+                         device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    names = ("front_rgb.png", "back_rgb.png", "mask.png", "0_keypoints.json",
+             "smplh.pkl", "conf.yaml", "replace_hands_recover.pkl",
+             "out.ply", "demo.mp4", "avatar.glb")
+    missing = [n for n in names if not os.path.exists(arts.get(n, ""))]
+    if missing:
+        raise RuntimeError(f"run_demo: missing {missing}")
+    mp4 = os.path.getsize(arts["demo.mp4"])
+    avatar = rigging.load_avatar(arts["replace_hands_recover.pkl"])
+    verts, _, _ = meshio.read_ply(arts["out.ply"])
+    g, _ = gltf.read_glb(arts["avatar.glb"])
+    grafted = avatar.v_template.shape[0] > verts.shape[0]
+    # 3 body-map passes, then a base pass and its ladder rungs (as many as
+    # the avatar's face sizes ask for) a block of 8 frames of video
+    blocks = -(-DEMO_FRAMES // 8)
+    others = {k: v for k, v in launches.items() if k != "fused_raster"}
+    log(f"  run_demo at {DEMO_SIZE}^2, {DEMO_FRAMES} frames: {wall:.3f} s; "
+        f"launches {launches}; demo.mp4 {mp4} bytes; avatar "
+        f"{avatar.v_template.shape[0]} vertices (stitched {verts.shape[0]}), "
+        f"hands grafted {grafted}; GLB {len(g['nodes'])} nodes")
+    if (launches["fused_raster"] < 3 + blocks or any(others.values())
+            or mp4 <= 0 or not grafted or len(g["skins"][0]["joints"]) != 24):
+        raise RuntimeError(f"run_demo: launches {launches} (expected "
+                           f"fused_raster at least {3 + blocks}, no other), "
+                           f"mp4 {mp4} bytes, grafted {grafted}")
+    return dict(wall_s=wall, launches=launches, mp4_bytes=mp4,
+                avatar_vertices=int(avatar.v_template.shape[0]))
 
 
 # -- the fused residual stage ------------------------------------------------
@@ -2506,7 +2769,7 @@ def phase_fit_timing(dev, model, decoder, fit_res):
 
 ALL_PHASES = ("lbs", "serve", "bench", "raster", "video", "oracle", "vtiming",
               "zbuffer", "reconstruct", "rtiming", "stage", "backbone",
-              "fit", "fitserve", "ftiming")
+              "fit", "fitserve", "ftiming", "rwhole", "demo")
 EXTRA_PHASES = ("vprofile",)
 
 
@@ -2600,8 +2863,6 @@ def main() -> int:
                                                 zbuffer_diffs)
             for k in kernels:
                 if k["name"] == "fused_raster":
-                    k["launches_reconstruct"] = \
-                        recon_res["launches"]["fused_raster"]
                     k["body_map_passes"] = fused24
             kernels.append(entry)
     finally:
@@ -2634,6 +2895,25 @@ def main() -> int:
         if "ftiming" in phases:
             log("phase 17: fit timing")
             phase_fit_timing(dev, fit_model, fit_decoder, fit_res)
+
+    if set(phases) & {"rwhole", "demo"}:
+        whole_dir = tempfile.mkdtemp(prefix="chip_smoke_whole_")
+        try:
+            if "rwhole" in phases:
+                log(f"phase 18: the whole reconstruct() at {RECON_SIZE}^2 "
+                    f"with the hand graft")
+                whole = phase_reconstruct_whole(dev, whole_dir)
+                log(json.dumps({"reconstruct_whole": whole}))
+                for k in kernels:
+                    k["launches_reconstruct"] = whole["launches"][k["name"]]
+            if "demo" in phases:
+                log(f"phase 19: run_demo at {DEMO_SIZE}^2, {DEMO_FRAMES} "
+                    f"frames")
+                demo_res = phase_demo(dev, whole_dir)
+                for k in kernels:
+                    k["launches_demo"] = demo_res["launches"][k["name"]]
+        finally:
+            shutil.rmtree(whole_dir, ignore_errors=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

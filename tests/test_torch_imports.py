@@ -17,11 +17,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "tpubody_torch",
     "tpubody_torch.bench",
+    "tpubody_torch.cli",
     "tpubody_torch.device",
+    "tpubody_torch.geometry",
     "tpubody_torch.native",
     "tpubody_torch.core.fused_lbs",
     "tpubody_torch.core.lbs",
     "tpubody_torch.core.rotations",
+    "tpubody_torch.core.skeleton",
     "tpubody_torch.fit.collision",
     "tpubody_torch.fit.joints",
     "tpubody_torch.fit.keypoints",
@@ -38,15 +41,23 @@ MODULES = [
     "tpubody_torch.image.ops",
     "tpubody_torch.image.warp",
     "tpubody_torch.io.motion",
+    "tpubody_torch.mesh.bspline",
     "tpubody_torch.mesh.decimate",
+    "tpubody_torch.mesh.gltf",
+    "tpubody_torch.mesh.grid_mesh",
+    "tpubody_torch.mesh.hands",
     "tpubody_torch.mesh.meshio",
     "tpubody_torch.mesh.rigging",
+    "tpubody_torch.mesh.slicing",
+    "tpubody_torch.mesh.smoothing",
+    "tpubody_torch.mesh.stitch",
     "tpubody_torch.models.fused_resnet",
     "tpubody_torch.models.hmr",
     "tpubody_torch.models.humanoid",
     "tpubody_torch.models.params",
     "tpubody_torch.models.smpl",
     "tpubody_torch.pipelines.animate",
+    "tpubody_torch.pipelines.demo",
     "tpubody_torch.pipelines.gen_smplh",
     "tpubody_torch.pipelines.hmr_infer",
     "tpubody_torch.pipelines.reconstruct",
@@ -75,11 +86,12 @@ for name in json.loads(sys.argv[1]):
     report[name] = sorted(now - seen)
     seen |= now
 import tpubody_torch
-from tpubody_torch import native
+from tpubody_torch import geometry, native
 found = sorted(m.name for m in pkgutil.walk_packages(
     tpubody_torch.__path__, "tpubody_torch.") if not m.ispkg)
 print(json.dumps({"report": report, "found": found,
                   "lib_loaded": native._LIB is not None,
+                  "geometry_loaded": geometry._LIB is not None,
                   "cv2": "cv2" in sys.modules}))
 """
 
@@ -107,7 +119,8 @@ def test_every_module_is_listed(imported):
 
 
 def test_import_builds_and_loads_nothing(imported):
-    """Kernels are compiled and cv2 is imported at first use, never when a
-    module is imported."""
+    """Kernels and the host-geometry helper are compiled, and cv2 is
+    imported, at first use, never when a module is imported."""
     assert not imported["lib_loaded"]
+    assert not imported["geometry_loaded"]
     assert not imported["cv2"]

@@ -17,7 +17,20 @@ two rendered silhouettes came out equal, to the per-stage bars: 1e-3 of
 the depth range, and 1e-3 on the stitch weights (1e-4 of the warp plus
 the float16 the device-resident branch carries them in, 2^-11 = 4.9e-4).
 The cached branch writes tpubody's side-car files and is hit on a second
-run; ``reconstruct`` runs the device stages and raises at the stitch."""
+run.
+
+``reconstruct`` runs to its end in both cache modes, with and without the
+hand graft, and writes tpubody's artefact names.  Free-running against
+``tpubody.reconstruct`` on the same inputs (tpubody's host geometry on its
+C++ path, tests/torch_recon_common.py), the silhouettes come out equal
+here, so the per-stage bars apply to what follows: stitched vertex and
+face counts and faces equal, colours equal, positions and recovered
+joints within 1e-3 of the depth range (measured 7.0e-5 and 1.3e-5 of a
+7.6 range), stitch weights within 1e-3 (the float16 crossing, 2^-11), the
+avatar's v_template and joints within 1e-4 (BASELINE.json's vertex bar;
+measured 2.2e-5 and 3.9e-7).  At 128^2 the humanoid's wrists are too thin
+for a section ring: both packages take the hand graft's degrade branch
+alike (the same warning, the avatar unchanged)."""
 import os
 
 import numpy as np
@@ -26,15 +39,13 @@ import torch
 import jax.numpy as jnp
 
 from tpubody.image import warp as JW
-from tpubody.models import humanoid as JH
-from tpubody.models import smpl as JS
-from tpubody.pipelines import demo as jdemo
 from tpubody.pipelines import reconstruct as JR
-from tpubody.render import bodymaps as JB
-from tpubody.render import camera as JC
 from tpubody.solve import normal2depth as JN
 from tpubody.utils import cache as jcache
 from tpubody_torch.image import warp as TW
+from tpubody_torch.mesh import gltf as TGl
+from tpubody_torch.mesh import meshio as TMio
+from tpubody_torch.mesh import rigging as TRig
 from tpubody_torch.models import humanoid as TH
 from tpubody_torch.pipelines import reconstruct as TRc
 from tpubody_torch.render import bodymaps as TB
@@ -42,63 +53,25 @@ from tpubody_torch.solve import normal2depth as TN
 from tpubody_torch.utils.cache import StageCache, digest
 from tpubody_torch.utils.profiling import StageTimer
 
+from tests import torch_recon_common
 from tests.test_torch_bodymaps import SLIVER_ATOL, SLIVER_SHARE, VALUE_ATOL
 
 torch.set_num_threads(1)
 
-SIZE = 128
-N_VERTS = 1100
-PHOTO_BETAS = np.array([0.6, 1.5, 0, 0, 0, 0, 0, 0, 0, 0], np.float64)
+SIZE = torch_recon_common.SIZE
+N_VERTS = torch_recon_common.N_VERTS
 VERT_ATOL = 1e-5
 WARP_ATOL = 1e-4
 DEPTH_REL = 1e-3
 WEIGHT_ATOL = 1e-3
 CHAIN_MEAN_REL = 1e-2
+AVATAR_ATOL = 1e-4
 
 
 @pytest.fixture(scope="module")
 def jax_chain():
     """tpubody's stages 1-5 (reconstruct.py:105-210) and their inputs."""
-    smplh, smpl = JH.humanoid(52, N_VERTS), JH.humanoid(24, N_VERTS)
-    pose = jdemo.demo_pose(52, 0)
-
-    def posed(betas):
-        return JS.forward(smplh, jnp.asarray(pose, jnp.float32),
-                          jnp.asarray(betas, jnp.float32))
-
-    verts = np.asarray(posed(jdemo.DEMO_BETAS).verts)
-    focal = 5000.0 * SIZE / 1024.0
-    center = np.array([SIZE / 2.0, SIZE / 2.0])
-    c = (verts.min(axis=0) + verts.max(axis=0)) / 2.0
-    extent = float((verts.max(axis=0) - verts.min(axis=0))[:2].max()) * 1.35
-    cam_t = np.array([-c[0], -c[1], extent * focal / (0.85 * SIZE) - c[2]])
-    faces, weights = np.asarray(smplh.faces), np.asarray(smpl.weights)
-
-    def render(v):
-        return JB.render_body_maps(v, faces, weights, cam_t, center, SIZE,
-                                   SIZE, focal=focal)
-
-    mask = np.asarray(render(np.asarray(posed(PHOTO_BETAS).verts)).mask)
-    mask_u8 = mask.astype(np.uint8) * 255
-    fit = JR.FitResult(shape=jdemo.DEMO_BETAS, pose=pose.reshape(-1),
-                       camera_center=center, camera_rotation=np.eye(3),
-                       camera_translation=cam_t, camera_fx=focal)
-
-    state_b = JS.forward(smpl, jnp.asarray(pose[:24], jnp.float32),
-                         jnp.asarray(fit.shape, jnp.float32))
-    K = JC.Intrinsics.make(focal, focal, center[0], center[1])
-    J_2d = np.asarray(JC.project_points(
-        JS.regress_joints(smpl, state_b.verts), K,
-        jnp.eye(3, dtype=jnp.float32), jnp.asarray(cam_t, jnp.float32)))
-    J_2d = np.clip(np.round(J_2d), 0, [SIZE - 1, SIZE - 1]).astype(int)
-    value = np.asarray(render(verts).value)
-    warp = JW.warp_stage(mask_u8, value)
-    front, back = JN.normal2depth(jnp.asarray(warp.value)[..., :6],
-                                  jnp.asarray(mask))
-    return dict(fit=fit, mask=mask, mask_u8=mask_u8, verts=verts,
-                faces=faces, weights=weights, J_2d=J_2d, value=value,
-                warp=warp, warp_value=np.asarray(warp.value),
-                front=np.asarray(front), back=np.asarray(back))
+    return torch_recon_common.jax_chain_data()
 
 
 @pytest.fixture(scope="module")
@@ -250,20 +223,129 @@ def test_cached_branch(jax_chain, models, port_chain, tmp_path):
     np.testing.assert_array_equal(hit["depth_front.npy"], f1)
 
 
+def run_reconstruct(jc, models, out_dir=None, **kw):
+    return TRc.reconstruct(jc["front_rgb"], jc["back_rgb"], jc["mask_u8"],
+                           TRc.FitResult(*jc["fit"]), models[0], models[1],
+                           out_dir=out_dir, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("replace_hands", [False, True])
 @pytest.mark.parametrize("cache", [True, False])
-def test_reconstruct_raises_at_the_stitch(jax_chain, models, tmp_path, cache):
-    jc = jax_chain
-    rgb = np.zeros((SIZE, SIZE, 3), np.uint8)
+def test_reconstruct_completes(jax_chain, models, tmp_path, cache,
+                               replace_hands, capfd):
+    """Both cache modes run every stage and write tpubody's artefacts,
+    which load back; the result is the port's types."""
     timer = StageTimer()
-    with pytest.raises(NotImplementedError, match="stitch"):
-        TRc.reconstruct(rgb, rgb, jc["mask_u8"], TRc.FitResult(*jc["fit"]),
-                        models[0], models[1], out_dir=str(tmp_path),
-                        cache=cache, timer=timer, device="cpu")
-    assert [r["stage"] for r in timer.records][-1] == "normal2depth"
-    assert os.path.exists(tmp_path / "depth_front.npy") == cache
-    with pytest.raises(NotImplementedError, match="D2"):
-        TRc.reconstruct(rgb, rgb, jc["mask_u8"], TRc.FitResult(*jc["fit"]),
-                        models[0], models[1], device="cpu")
+    res = run_reconstruct(jax_chain, models, str(tmp_path), cache=cache,
+                          timer=timer, replace_hands=replace_hands)
+    stages = [r["stage"] for r in timer.records]
+    assert stages == ["smplh_forward", "project_joints", "render_value_maps",
+                      "warp", "normal2depth", "stitch", "rig"] \
+        + ["replace_hands"] * replace_hands + ["save"]
+    assert isinstance(res, TRc.ReconstructResult)
+    assert type(res.avatar) is TRig.RiggedAvatar
+    n = res.points.shape[0]
+    assert res.points.shape == (n, 30) and res.joints3d.shape == (24, 3)
+    assert np.isfinite(res.avatar.v_template).all()
+    np.testing.assert_allclose(res.avatar.weights.sum(axis=1), 1.0,
+                               atol=1e-9)
+    pkl = "replace_hands_recover.pkl" if replace_hands else "or_recover.pkl"
+    for name in ("points.npy", "faces.npy", "J_3d.npy", pkl, "out.ply",
+                 "out.glb"):
+        assert (tmp_path / name).exists(), name
+    assert (tmp_path / "depth_front.npy").exists() == cache
+    np.testing.assert_array_equal(np.load(tmp_path / "points.npy"),
+                                  res.points)
+    np.testing.assert_array_equal(np.load(tmp_path / "faces.npy"), res.faces)
+    np.testing.assert_array_equal(np.load(tmp_path / "J_3d.npy"),
+                                  res.joints3d)
+    avatar = TRig.load_avatar(str(tmp_path / pkl))
+    np.testing.assert_array_equal(avatar.v_template, res.avatar.v_template)
+    verts, faces, _ = TMio.read_ply(str(tmp_path / "out.ply"))
+    np.testing.assert_allclose(verts, res.points[:, :3], atol=1e-6)
+    np.testing.assert_array_equal(faces, res.faces)
+    gltf, _ = TGl.read_glb(str(tmp_path / "out.glb"))
+    assert len(gltf["skins"][0]["joints"]) == 24
+    assert ("hand replacement skipped" in capfd.readouterr().err) \
+        == replace_hands
+    # without out_dir the cache is off: the same mesh, the stitch weights
+    # up to the float16 the device-resident branch carries them in
+    again = run_reconstruct(jax_chain, models, cache=cache,
+                            replace_hands=replace_hands)
+    np.testing.assert_array_equal(again.faces, res.faces)
+    np.testing.assert_array_equal(again.points[:, :6], res.points[:, :6])
+    np.testing.assert_allclose(again.points[:, 6:], res.points[:, 6:],
+                               atol=2.0 ** -11)
+
+
+@pytest.fixture(scope="module")
+def tpubody_result(jax_chain):
+    jc = jax_chain
+    mp = pytest.MonkeyPatch()
+    torch_recon_common.use_native_geometry(mp)
+    try:
+        return JR.reconstruct(jc["front_rgb"], jc["back_rgb"], jc["mask_u8"],
+                              jc["fit"], jc["smplh"], jc["smpl"],
+                              cache=False, replace_hands=True)
+    finally:
+        mp.undo()
+
+
+def test_reconstruct_matches_tpubodys(jax_chain, models, port_chain,
+                                      tpubody_result, capfd):
+    """Free-running, cache off, hand graft asked for: tpubody's
+    reconstruct and the port's on the same inputs (the bars are in the
+    module's docstring)."""
+    want = tpubody_result
+    got = run_reconstruct(jax_chain, models, cache=False, replace_hands=True)
+    err = capfd.readouterr().err
+    assert err.count("hand replacement skipped (wrist section failed") == 1
+    (_, _, _, _), keep, _ = port_chain
+    assert np.array_equal((keep["value"].numpy() == 1.0).all(-1),
+                          (jax_chain["value"] == 1.0).all(-1))
+    rng = float(jax_chain["front"].max() - jax_chain["front"].min())
+    assert got.points.shape == want.points.shape
+    np.testing.assert_array_equal(got.faces, want.faces)
+    np.testing.assert_allclose(got.points[:, :3], want.points[:, :3],
+                               atol=DEPTH_REL * rng)
+    np.testing.assert_array_equal(got.points[:, 3:6], want.points[:, 3:6])
+    np.testing.assert_allclose(got.points[:, 6:], want.points[:, 6:],
+                               atol=WEIGHT_ATOL)
+    np.testing.assert_allclose(got.joints3d, want.joints3d,
+                               atol=DEPTH_REL * rng)
+    np.testing.assert_allclose(got.avatar.v_template, want.avatar.v_template,
+                               atol=AVATAR_ATOL)
+    np.testing.assert_allclose(got.avatar.joints, want.avatar.joints,
+                               atol=AVATAR_ATOL)
+    np.testing.assert_array_equal(got.avatar.faces, want.avatar.faces)
+    # the degrade branch kept the rigged avatar as it was
+    assert got.avatar.v_template.shape[0] == got.points.shape[0]
+
+
+def test_result_from_numpy_takes_tpubodys_result(tpubody_result):
+    res = TRc.result_from_numpy(tpubody_result)
+    assert type(res) is TRc.ReconstructResult
+    assert type(res.avatar) is TRig.RiggedAvatar
+    for a, b in zip(res.avatar, tpubody_result.avatar):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    np.testing.assert_array_equal(res.points, tpubody_result.points)
+
+
+def test_load_test_dir_reads_tpubodys_fixture(tmp_path):
+    """A fixture directory written by tpubody's demo loads the same in
+    both packages."""
+    from tpubody.pipelines import demo as jdemo
+
+    jdemo.make_fixture(str(tmp_path), size=64, verts=1100)
+    got = TRc.load_test_dir(str(tmp_path))
+    want = JR.load_test_dir(str(tmp_path))
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(got[3], want[3]):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    os.remove(tmp_path / "mask.png")
+    with pytest.raises(FileNotFoundError):
+        TRc.load_test_dir(str(tmp_path))
 
 
 def test_reconstruct_defaults_to_the_card(jax_chain, models, monkeypatch):

@@ -9,7 +9,8 @@ monotonically (window k) and total point distance is minimal.
 The DP runs over photo points with the whole cost row as its state: each
 step is a windowed minimum over the k previous columns plus a distance
 add, a handful of small launches on the device (``tpubody`` compiles the
-loop as a ``lax.scan``).  Backtracking walks the argmin table on the host.
+loop as a ``lax.scan``).  Backtracking walks the argmin table on the host
+(the C++ helper of :mod:`tpubody_torch.geometry`).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from tpubody_torch import geometry
 from tpubody_torch.device import DeviceLike, resolve
 
 _INF = 1e12
@@ -84,12 +86,17 @@ def match_boundaries(
     final_row, args = _dp_tables(dist, k)
     m = rb.shape[0]
 
-    # Backtrack (host-sequential).
+    # Backtrack (host-sequential, the C++ helper).
     args_np = args.cpu().numpy()                   # (m-1, n)
-    j = int(torch.argmin(final_row))
-    out = [j]
-    for i in range(m - 2, -1, -1):
-        j = int(args_np[i, j])
-        out.append(j)
-    match = np.asarray(out[::-1], np.int64)
+    match = geometry.dp_backtrack(args_np, int(torch.argmin(final_row)))
     return np.clip(match, 0, smpl_bound.shape[0] - 1)
+
+
+def dp_backtrack_reference(args: np.ndarray, j: int) -> np.ndarray:
+    """The plain version of :func:`tpubody_torch.geometry.dp_backtrack`:
+    the walk back through the (m-1, n) argmin table in Python."""
+    out = [int(j)]
+    for i in range(args.shape[0] - 1, -1, -1):
+        j = int(args[i, j])
+        out.append(j)
+    return np.asarray(out[::-1], np.int64)

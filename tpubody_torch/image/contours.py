@@ -4,7 +4,9 @@
 The reference uses cv2.findContours (lib/Warp.py:55,78) to obtain an
 *ordered* silhouette polygon.  Contour tracing is sequential and
 data-dependent, so it stays on the host, implemented first-party with
-Moore neighbour tracing.  Everything downstream (DP match, MVC, warping)
+Moore neighbour tracing: the C++ tracer of the host-geometry helper
+(:mod:`tpubody_torch.geometry`), with the Python tracer kept beside it as
+its plain version.  Everything downstream (DP match, MVC, warping)
 consumes the resulting point arrays on the device.
 """
 from __future__ import annotations
@@ -13,6 +15,8 @@ import math
 
 import numpy as np
 
+from tpubody_torch import geometry
+
 # Moore neighborhood in clockwise order, starting from W.
 _NEIGHBORS = [(-1, 0), (-1, -1), (0, -1), (1, -1),
               (1, 0), (1, 1), (0, 1), (-1, 1)]
@@ -20,15 +24,21 @@ _NEIGHBORS = [(-1, 0), (-1, -1), (0, -1), (1, -1),
 
 def trace_boundary(mask: np.ndarray) -> np.ndarray:
     """Trace the outer boundary of the first foreground region in scan
-    order.
+    order (the C++ tracer).
 
     Args:
       mask: (H, W) binary (nonzero = foreground).
 
     Returns:
-      (N, 2) int array of ordered boundary points as (x, y): the same
+      (N, 2) int64 array of ordered boundary points as (x, y): the same
       (w, h) column convention as the reference contours (lib/Warp.py:30-31).
     """
+    return geometry.trace_boundary(mask)
+
+
+def trace_boundary_reference(mask: np.ndarray) -> np.ndarray:
+    """The plain version of :func:`trace_boundary`: Moore tracing in
+    Python, the algorithm the C++ tracer runs."""
     m = np.asarray(mask) != 0
     H, W = m.shape
     pad = np.zeros((H + 2, W + 2), bool)

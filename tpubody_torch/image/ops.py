@@ -1,7 +1,9 @@
-"""Image file IO and HMR preprocessing on the host (port of the IO and
-crop/normalise parts of ``tpubody.image.ops``).
+"""Image file IO, HMR preprocessing and keypoint overlays on the host
+(port of the IO, crop/normalise and drawing parts of
+``tpubody.image.ops``).
 
-``read_image`` / ``write_image`` go through cv2, imported at first use.
+``read_image`` / ``write_image`` / ``draw_keypoints`` go through cv2,
+imported at first use.
 
 ``scale_and_crop`` resizes with ``torch.nn.functional.interpolate``
 (bilinear, half-pixel centres, no antialiasing), the same sampling as the
@@ -10,7 +12,7 @@ float32 input.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -80,3 +82,36 @@ def crop_from_keypoints(keypoints: np.ndarray,
     center = (lo + hi) / 2.0
     scale = margin * max(hi - lo) / 200.0
     return center, float(scale)
+
+
+def draw_keypoints(img: np.ndarray, keypoints: np.ndarray,
+                   radius: int = 3, color=(255, 0, 0),
+                   skeleton: Optional[Iterable[Tuple[int, int]]] = None,
+                   ) -> np.ndarray:
+    """Overlay keypoints (and optional skeleton bones) on an image
+    (reference draw_key_point_in_image, utils/image_processing.py:1011)."""
+    import cv2
+    out = np.ascontiguousarray(np.asarray(img).copy())
+    kp = np.asarray(keypoints)
+    conf = kp[:, 2] if kp.shape[1] > 2 else np.ones(len(kp))
+    for (x, y), c in zip(kp[:, :2], conf):
+        if c > 0:
+            cv2.circle(out, (int(round(x)), int(round(y))), radius,
+                       color, -1)
+    if skeleton is not None:
+        for a, b in skeleton:
+            if conf[a] > 0 and conf[b] > 0:
+                cv2.line(out,
+                         (int(round(kp[a, 0])), int(round(kp[a, 1]))),
+                         (int(round(kp[b, 0])), int(round(kp[b, 1]))),
+                         color, 1)
+    return out
+
+
+# OpenPose BODY_25 skeleton bone pairs for visualization.
+BODY25_SKELETON = (
+    (0, 1), (1, 2), (2, 3), (3, 4), (1, 5), (5, 6), (6, 7), (1, 8),
+    (8, 9), (9, 10), (10, 11), (8, 12), (12, 13), (13, 14), (0, 15),
+    (15, 17), (0, 16), (16, 18), (11, 22), (22, 23), (11, 24),
+    (14, 19), (19, 20), (14, 21),
+)

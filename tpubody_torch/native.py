@@ -13,6 +13,7 @@ kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import glob
@@ -99,16 +100,26 @@ def _compile(out_path: str) -> None:
     shutil.rmtree(tmp, ignore_errors=True)
 
 
+@contextlib.contextmanager
+def build_lock():
+    """Hold the build directory's file lock -> the directory's path.  Every
+    library the port builds (these kernels, and the host-geometry helper
+    of :mod:`tpubody_torch.geometry`) is compiled under it, so concurrent
+    first users (test workers) never load a half-written file."""
+    build_dir = os.path.normpath(BUILD_DIR)
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(build_dir, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        yield build_dir
+
+
 def build() -> str:
     """Compile the kernel library if its sources changed; return its path.
     Safe against concurrent builders (file lock)."""
-    build_dir = os.path.normpath(BUILD_DIR)
-    os.makedirs(build_dir, exist_ok=True)
-    lib_path = os.path.join(build_dir, LIB_NAME)
-    stamp = os.path.join(build_dir, "sources.sha256")
     want = sources_hash()
-    with open(os.path.join(build_dir, "build.lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+    with build_lock() as build_dir:
+        lib_path = os.path.join(build_dir, LIB_NAME)
+        stamp = os.path.join(build_dir, "sources.sha256")
         have = open(stamp).read().strip() if os.path.exists(stamp) else ""
         if have != want or not os.path.exists(lib_path):
             _compile(lib_path)

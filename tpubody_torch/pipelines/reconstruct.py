@@ -11,9 +11,11 @@ Stages (call stack parity with main.py:28-141):
   7. rig the mesh onto the SMPL skeleton: mesh.rigging.
 
 Stages 1-5 run on the device :func:`reconstruct` is given (the card
-unless the caller asks for the CPU).  Stages 6-7 (the
-host-side mesh modules) are not ported yet: :func:`reconstruct` runs the
-device stages and then raises ``NotImplementedError``.
+unless the caller asks for the CPU).  Their outputs cross to the host
+once; stitch, rig, the optional hand graft and the export then run on the
+host in numpy (with the C++ host-geometry helper), apart from the few
+small torch calls they make on the same device: the silhouette's closing
+in stitch and the SMPL forwards of rig and the hand graft.
 
 With ``cache=True`` every stage persists the reference's side-car
 artifacts (smplh_value.npy, warp_and_filled.npy, depth_front.npy, ...
@@ -34,7 +36,9 @@ import torch
 
 from tpubody_torch.device import DeviceLike, resolve
 from tpubody_torch.image import warp as warp_lib
-from tpubody_torch.mesh import rigging
+from tpubody_torch.mesh import gltf as gltf_lib
+from tpubody_torch.mesh import hands as hands_lib
+from tpubody_torch.mesh import meshio, rigging, stitch as stitch_lib
 from tpubody_torch.models import params as params_lib
 from tpubody_torch.models import smpl as smpl_lib
 from tpubody_torch.render import bodymaps, camera as camera_lib
@@ -88,6 +92,15 @@ class ReconstructResult(NamedTuple):
     points: np.ndarray     # stitched (N, 30) attribute mesh
     faces: np.ndarray
     joints3d: np.ndarray
+
+
+def result_from_numpy(result) -> ReconstructResult:
+    """The port's :class:`ReconstructResult` from ``tpubody``'s (the same
+    fields: numpy arrays and an avatar, converted by
+    :func:`tpubody_torch.mesh.rigging.avatar_from_numpy`)."""
+    return ReconstructResult(
+        avatar=rigging.avatar_from_numpy(**result.avatar._asdict()),
+        points=result.points, faces=result.faces, joints3d=result.joints3d)
 
 
 def _device_stages(
@@ -208,6 +221,63 @@ def _device_stages(
     return J_2d, stitch_weights, front_depth, back_depth
 
 
+def _host_stages(
+    front_rgb: np.ndarray,
+    back_rgb: np.ndarray,
+    fit: FitResult,
+    smpl_model: params_lib.BodyModelParams,
+    J_2d: np.ndarray,
+    stitch_weights: np.ndarray,
+    front_depth: np.ndarray,
+    back_depth: np.ndarray,
+    sc: StageCache,
+    save: bool,
+    replace_hands: bool,
+    timer: StageTimer,
+    detail: Optional[StageTimer],
+) -> ReconstructResult:
+    """Stages 6-7 and the export on the host, from the device stages'
+    numpy outputs: stitch (its mask closing on the model's device), rig
+    (its SMPL forwards there too), the optional hand graft, and with
+    ``save`` the side-cars, the avatar pickle, ``out.ply`` and ``out.glb``
+    through ``sc``."""
+    dev = smpl_model.device
+    pose_b = fit.pose.reshape(-1, 3)[:24]
+    with timer.stage("stitch"):
+        fc = np.asarray(front_rgb, np.float32)[..., :3]
+        bc = np.asarray(back_rgb, np.float32)[..., :3]
+        res = stitch_lib.stitch_mesh(
+            front_depth, fc, back_depth, bc,
+            stitch_weights, J_2d, timer=detail, device=dev)
+        if save:
+            np.save(sc.path("points"), res.points)
+            np.save(sc.path("faces"), res.faces)
+            np.save(sc.path("J_3d"), res.joints3d)
+
+    with timer.stage("rig"):
+        avatar = rigging.rig_mesh(
+            smpl_model,
+            res.points[:, :3], res.points[:, 3:6], res.faces,
+            res.points[:, 6:30], pose_b, fit.shape, res.joints3d)
+
+    if replace_hands:
+        with timer.stage("replace_hands"):
+            avatar = hands_lib.replace_hands(avatar, smpl_model)
+
+    if save:
+        with timer.stage("save"):
+            rigging.save_avatar(
+                sc.path("replace_hands_recover.pkl" if replace_hands
+                        else "or_recover.pkl"), avatar)
+            meshio.write_ply(sc.path("out.ply"), res.points[:, :3],
+                             res.faces, res.points[:, 3:6])
+            # Engine-ready skinned export of the rigged avatar alongside
+            # the pickle (beyond the reference's PLY/pickle-only surface).
+            gltf_lib.export_avatar_glb(sc.path("out.glb"), avatar)
+    return ReconstructResult(avatar=avatar, points=res.points,
+                             faces=res.faces, joints3d=res.joints3d)
+
+
 def reconstruct(
     front_rgb: np.ndarray,        # (H, W, 3) uint8/float
     back_rgb: np.ndarray,
@@ -225,10 +295,11 @@ def reconstruct(
     card unless the caller passes ``device="cpu"``; raises where CUDA is
     asked for and there is none.  The body models are moved there.
 
-    Stages 1-5 run; the stitch stage then raises ``NotImplementedError``
-    (the mesh modules behind stitch, rig and the hand graft are not ported
-    yet), with the device stages' artifacts already in ``out_dir`` when the
-    cache is on."""
+    With ``out_dir`` the stitched mesh's side-cars (``points.npy``,
+    ``faces.npy``, ``J_3d.npy``), the avatar pickle (``or_recover.pkl``,
+    or ``replace_hands_recover.pkl`` with the hand graft), ``out.ply`` and
+    ``out.glb`` are written there; with the cache on, the device stages'
+    artifacts too."""
     dev = resolve(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -249,8 +320,27 @@ def reconstruct(
         cleanup = tempfile.TemporaryDirectory(prefix="tpubody_cache_")
         sc = StageCache(cleanup.name, enabled=False)
     with cleanup:
-        _device_stages(mask, fit, smplh_model, smpl_model, sc, timer, detail)
-    raise NotImplementedError(
-        "reconstruct: the device stages (smplh_forward .. normal2depth) ran; "
-        "the stitch stage (mesh.stitch.stitch_mesh), rig_mesh, the hand "
-        "graft and the PLY/GLB export are not ported yet (slice D2)")
+        J_2d, stitch_weights, front_depth, back_depth = _device_stages(
+            mask, fit, smplh_model, smpl_model, sc, timer, detail)
+
+    return _host_stages(front_rgb, back_rgb, fit, smpl_model, J_2d,
+                        stitch_weights, front_depth, back_depth, sc,
+                        bool(out_dir), replace_hands, timer, detail)
+
+
+def load_test_dir(path: str):
+    """Load a reference fixture directory (data/tests/testNN layout) ->
+    (front RGB, back RGB, mask, FitResult).  The fit pickle is unpickled:
+    read only directories this program, or a fitting stage you trust,
+    wrote."""
+    import cv2
+
+    from tpubody_torch.image import ops as img_ops
+    front = img_ops.read_image(os.path.join(path, "front_rgb.png"))
+    back = img_ops.read_image(os.path.join(path, "back_rgb.png"))
+    mask = cv2.imread(os.path.join(path, "mask.png"), cv2.IMREAD_GRAYSCALE)
+    if mask is None:
+        raise FileNotFoundError(
+            f"unreadable image: {os.path.join(path, 'mask.png')}")
+    fit = load_fit_pickle(os.path.join(path, "smplh.pkl"))
+    return front, back, mask, fit
