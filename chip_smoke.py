@@ -204,14 +204,48 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                pass and the ladder rungs the avatar needs; launches_demo),
                no other kernel.
 
+  20. train   — the training path (no kernel of the port lies on it: the
+               loss uses the torch-op LBS, the backbone the library's
+               convolutions, as in tpubody): train-hmr through the CLI's
+               own function at its defaults (fp32 HMR, full ResNet-50 and
+               3-step IEF, 224^2, batch 32, Adam 1e-4) on --render 64
+               (rendered at 240^2 and cropped), 20 steps: every loss
+               finite, the 3D eval finite, the checkpoint holds step 20.
+               Then at full width: 30 steps on one fixed batch reduce the
+               loss; the checkpoint round-trips bit for bit and 2 steps
+               resumed from it equal 2 steps without the save (cuDNN
+               deterministic); one step at batch 4, 64^2 on the card
+               against the CPU in float64 (loss 1e-9, gradients 1e-6 of
+               each tensor's largest, BatchNorm statistics 1e-9; fp32
+               printed).  Launch counters zeroed before and read after: 0
+               of each kernel;
+  21. remat   — the same step with remat against without, same batch and
+               weights (cuDNN deterministic): loss and gradients within
+               1e-4, the BatchNorm statistics equal and counted once;
+               torch.cuda.max_memory_allocated of both (remat lower);
+               ms/step by CUDA events (10 steps after 3) and images/s;
+  22. pose2d  — train-pose2d at its defaults (128^2, features 32, batch 16,
+               the 1200-vertex humanoid's 24 joints) with --domain-rand
+               for 100 steps (--chunk 20): pixel error after < before,
+               ms/step; the synthesizer and the train step alone by CUDA
+               events; detect-pose --ckpt on one rendered 256^2 image
+               writes OpenPose JSON that fit.keypoints reads back with 67
+               slots; the synthesizer given the same draws on the card and
+               on the CPU at 128^2 (keypoints within 1e-4 px, at most 1%
+               of the pixels beyond 1e-4); 0 launches of each kernel;
+  23. asf     — animate with a CMU .amc clip and --asf through the CLI at
+               256^2, 8 frames (tpubody's sample skeleton, retargeted to
+               the 24-joint humanoid avatar): the MP4 has 8 frames and
+               fused_raster launched once a pass of each block.
+
 It then prints the kernel line (each kernel with the card's name and power
 limit), the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.  It needs one CUDA GPU and no network.
 ``--phases a,b`` runs a subset (names: lbs, serve, bench, raster, video,
 oracle, vtiming, zbuffer, reconstruct, rtiming, stage, backbone, fit,
-fitserve, ftiming, rwhole, demo, and the extra vprofile: a
-torch.profiler pass over the video path) and prints no result line: a
-development aid.
+fitserve, ftiming, rwhole, demo, train, remat, pose2d, asf, and the extra
+vprofile: a torch.profiler pass over the video path) and prints no result
+line: a development aid.
 """
 from __future__ import annotations
 
@@ -327,6 +361,14 @@ PHOTO_BETAS = np.array([0.6, 1.5, 0, 0, 0, 0, 0, 0, 0, 0], np.float64)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -2767,9 +2809,661 @@ def phase_fit_timing(dev, model, decoder, fit_res):
     return res
 
 
+# -- the training path (phases 20-23) -----------------------------------------
+
+TRAIN_RENDER = 64         # --render examples of train-hmr (phase 20)
+TRAIN_STEPS = 20          # train-hmr steps through the CLI
+TRAIN_BATCH = 32          # train-hmr's defaults: batch 32 at 224^2, fp32
+TRAIN_SIZE = 224
+TRAIN_FIXED_STEPS = 30    # steps on one fixed batch that must reduce the loss
+TRAIN_CPU_BATCH = 4       # card vs CPU: one step at batch 4, 64^2
+TRAIN_CPU_SIZE = 64
+# Card vs CPU in float64: train-mode BatchNorm over few values a channel
+# makes the step ill-conditioned (fp32 rounding alone moves gradients by
+# percent; tests/torch_train_common.py), so the gate runs in float64, where
+# the same amplification leaves about 1e-10; fp32 is printed, not gated.
+TRAIN_LOSS_REL = 1e-9
+TRAIN_GRAD_REL = 1e-6     # per tensor, of its largest |g|
+TRAIN_STAT_REL = 1e-9     # BatchNorm running statistics, per tensor
+# remat vs none on the card, cuDNN deterministic: the recomputation runs
+# the forward's own kernels, so a difference is a fault; the bar leaves
+# room for another algorithm choice on the recomputed activations.
+REMAT_GRAD_REL = 1e-4
+TIMED_STEPS = 10          # CUDA-event timing after 3 warm-up steps
+POSE_STEPS = 100          # train-pose2d at its defaults, --domain-rand
+POSE_CHUNK = 20
+POSE_CPU_BATCH = 4        # card vs CPU synthesizer, the same draws, 128^2
+POSE_IMG_ATOL = 1e-4      # image values in [0, 1]; a pixel whose centre is
+POSE_IMG_SHARE = 0.01     # within rounding of an edge may take the other
+POSE_KP_ATOL = 1e-4       # face: at most 1% beyond the bar; keypoints, px
+DETECT_SIZE = 256
+ASF_SIZE = 256
+ASF_FRAMES = 8
+ASF_CAM_Z = 20.0          # frames the 1.7 m humanoid at focal 2500 in 256^2
+
+# The sample skeleton of tpubody's tests/test_asf.py (lfemur, ltibia,
+# upperback under the root; CMU names, which ASF_SMPL_MAP sends to SMPL
+# joints 1, 4 and 3).
+SAMPLE_ASF = """
+:version 1.10
+:name VICON
+:units
+  mass 1.0
+  length 0.45
+  angle deg
+:documentation
+  test skeleton
+:root
+  order TX TY TZ RX RY RZ
+  axis XYZ
+  position 0 0 0
+  orientation 0 0 0
+:bonedata
+  begin
+     id 1
+     name lfemur
+     direction 0.34 -0.93 0
+     length 7.0
+     axis 0 0 20 XYZ
+    dof rx ry rz
+    limits (-160.0 20.0)
+           (-70.0 70.0)
+           (-60.0 70.0)
+  end
+  begin
+     id 2
+     name ltibia
+     direction 0.34 -0.94 0
+     length 7.3
+     axis 0 0 20 XYZ
+    dof rx
+    limits (-10.0 170.0)
+  end
+  begin
+     id 3
+     name upperback
+     direction 0.0 1.0 0.0
+     length 2.0
+     axis 0 0 0 XYZ
+  end
+:hierarchy
+  begin
+    root lfemur upperback
+    lfemur ltibia
+  end
+"""
+
+
+def amc_text(frames):
+    """An AMC clip over SAMPLE_ASF: a stride of the left leg."""
+    lines = ["#!OML:ASF", ":FULLY-SPECIFIED", ":DEGREES"]
+    for f in range(frames):
+        ph = 2 * np.pi * f / frames
+        lines += [str(f + 1),
+                  f"root {0.5 * f:.3f} 16.0 -2.0 {4 * np.sin(ph):.3f} "
+                  f"-5.0 3.0",
+                  f"lfemur {-35 * np.sin(ph):.3f} -8.0 5.0",
+                  f"ltibia {40 + 35 * np.cos(ph):.3f}"]
+    return "\n".join(lines) + "\n"
+
+
+class deterministic:
+    """cuDNN's deterministic algorithms and PyTorch's deterministic
+    implementations (index_add among them) for a comparison that must be
+    bit for bit; restored on exit."""
+
+    def __enter__(self):
+        import torch
+        self.old = (torch.backends.cudnn.deterministic,
+                    torch.backends.cudnn.benchmark,
+                    torch.are_deterministic_algorithms_enabled(),
+                    torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.backends.cudnn.deterministic = self.old[0]
+        torch.backends.cudnn.benchmark = self.old[1]
+        torch.use_deterministic_algorithms(self.old[2],
+                                           warn_only=self.old[3])
+
+
+def rel_err(got, want):
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-300)
+
+
+class TrainSetup:
+    """The training path's inputs on ``dev``: the full-width body
+    (humanoid(24, 6890), as train-hmr --render uses), a rendered batch of
+    TRAIN_BATCH examples at TRAIN_SIZE^2 (rendered at +16 and cropped, as
+    the CLI does) and TRAIN_CPU_BATCH of them at TRAIN_CPU_SIZE^2."""
+
+    def __init__(self, dev):
+        from tpubody_torch.io import dataset as ds
+        from tpubody_torch.models import hmr_train
+        from tpubody_torch.models import humanoid
+
+        self.dev = dev
+        self.smpl = humanoid.humanoid(n_joints=24, n_verts=6890, seed=0,
+                                      device=dev)
+        data = ds.rendered_hmr_dataset(TRAIN_BATCH, image_size=TRAIN_SIZE + 16,
+                                       seed=1, device=dev)
+        self.examples = ds.ArrayDataset([
+            ds.preprocess_example(e, size=TRAIN_SIZE) for e in data._examples])
+        self.batch = ds.collate(self.examples._examples).to(dev)
+        self.small = ds.collate([
+            ds.preprocess_example(e, size=TRAIN_CPU_SIZE)
+            for e in data._examples[:TRAIN_CPU_BATCH]])
+        self.step = hmr_train.make_train_step(self.smpl,
+                                              img_size=float(TRAIN_SIZE))
+
+    def fresh(self, seed=0, remat=False):
+        import torch
+
+        from tpubody_torch.models import hmr as hmr_lib
+        from tpubody_torch.models import hmr_train
+
+        model = hmr_lib.create_hmr(dtype=torch.float32, device=self.dev,
+                                   seed=seed, remat=remat)
+        return hmr_train.create_train_state(model, lr=1e-4)
+
+    def gen(self, seed):
+        import torch
+        return torch.Generator(device=self.dev).manual_seed(seed)
+
+
+def same_state(a, b):
+    """Two TrainStates' weights, statistics and optimizer moments equal
+    bit for bit -> the first differing name or None."""
+    import torch
+
+    for (k, x), y in zip(a.model.state_dict().items(),
+                         b.model.state_dict().values()):
+        if not torch.equal(x, y):
+            return k
+    sa = a.optimizer.state_dict()["state"]
+    sb = b.optimizer.state_dict()["state"]
+    for i in sa:
+        for k in sa[i]:
+            if not torch.equal(sa[i][k].cpu(), sb[i][k].cpu()):
+                return f"optimizer {i}.{k}"
+    return None
+
+
+def step_card_vs_cpu(setup, dtype):
+    """One loss + backward of the same seeded model on the card and on the
+    CPU at TRAIN_CPU_BATCH x TRAIN_CPU_SIZE^2 in ``dtype``, dropout off ->
+    (loss rel, worst gradient rel, worst statistic rel, their names)."""
+    import torch
+
+    from tpubody_torch.models import hmr as hmr_lib
+    from tpubody_torch.models import hmr_train
+    from tpubody_torch.models import humanoid
+
+    sd = hmr_lib.create_hmr(dtype=torch.float32, device="cpu",
+                            seed=3).state_dict()
+    out = {}
+    for d in (setup.dev, torch.device("cpu")):
+        model = hmr_lib.HMR(hmr_lib.default_mean_params()).to(dtype)
+        model.load_state_dict(sd)
+        model.to(d).train()
+        model.drop.p = 0.0
+        smpl = humanoid.humanoid(n_joints=24, n_verts=6890, seed=0,
+                                 dtype=dtype, device=d)
+        batch = hmr_train.TrainBatch(*[x.to(d, dtype) for x in setup.small])
+        loss, _ = hmr_train.loss_fn(model, smpl, batch, None,
+                                    img_size=float(TRAIN_CPU_SIZE))
+        loss.backward()
+        out[d.type] = (loss.detach(),
+                       {k: p.grad for k, p in model.named_parameters()},
+                       {k: x for k, x in model.state_dict().items()
+                        if k.endswith(("running_mean", "running_var"))})
+    (lc, gc, sc), (lh, gh, sh) = out["cuda" if setup.dev.type == "cuda"
+                                     else "cpu"], out["cpu"]
+    grad = max((rel_err(gc[k], gh[k]), k) for k in gh)
+    stat = max((rel_err(sc[k], sh[k]), k) for k in sh)
+    return rel_err(lc, lh), grad, stat
+
+
+def phase_train(dev, workdir, setup):
+    """train-hmr through the CLI at its defaults on --render data, then the
+    step's gates at full width -> the phase's numbers."""
+    import torch
+
+    from tpubody_torch import cli, native
+    from tpubody_torch.utils import checkpoint as ckpt_lib
+    from tpubody_torch.utils.metrics import read_jsonl
+
+    res = {}
+    out = os.path.join(workdir, "hmr.pt")
+    native.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(["--device", str(dev), "train-hmr", "--render",
+                   str(TRAIN_RENDER), "--steps", str(TRAIN_STEPS),
+                   "--out", out])
+    torch.cuda.synchronize()
+    res["cli_wall_s"] = time.perf_counter() - t0
+    recs = read_jsonl(out + "_metrics.jsonl")
+    losses = [r["loss"] for r in recs if r["tag"] == "train"]
+    evals = [r for r in recs if r["tag"] == "eval"]
+    log(f"  train-hmr --render {TRAIN_RENDER} --steps {TRAIN_STEPS} "
+        f"(batch {TRAIN_BATCH}, {TRAIN_SIZE}^2, fp32, humanoid(24, 6890)): "
+        f"rc {rc}, {res['cli_wall_s']:.3f} s with the render and the eval; "
+        f"losses {losses[0]:.6f} -> {losses[-1]:.6f}; eval {evals}")
+    if (rc != 0 or len(losses) != TRAIN_STEPS
+            or not np.all(np.isfinite(losses)) or len(evals) != 1
+            or not all(np.isfinite(evals[0][k])
+                       for k in ("mpjpe", "pa_mpjpe", "pve"))):
+        raise RuntimeError("train-hmr: a loss or the 3D eval is not finite")
+    res["eval"] = {k: evals[0][k] for k in ("mpjpe", "pa_mpjpe", "pve")}
+    restored = ckpt_lib.restore_train_state(out, setup.fresh(seed=5))
+    if restored.step != TRAIN_STEPS:
+        raise RuntimeError(f"train-hmr's checkpoint holds step "
+                           f"{restored.step}")
+
+    # 30 steps on one fixed batch reduce the loss.
+    state = setup.fresh()
+    gen = setup.gen(0)
+    fixed = []
+    for _ in range(TRAIN_FIXED_STEPS):
+        state, m = setup.step(state, setup.batch, gen)
+        fixed.append(float(m["loss"]))
+    log(f"  {TRAIN_FIXED_STEPS} steps on one batch: loss {fixed[0]:.6f} -> "
+        f"{fixed[-1]:.6f}")
+    if not (np.all(np.isfinite(fixed)) and fixed[-1] < fixed[0]):
+        raise RuntimeError("the loss did not fall on a fixed batch")
+    res["fixed_batch_loss"] = (fixed[0], fixed[-1])
+
+    # The checkpoint round-trips bit for bit; 2 steps resumed from it equal
+    # 2 steps without the save (deterministic kernels on both sides).
+    with deterministic():
+        path = os.path.join(workdir, "state.pt")
+        ckpt_lib.save_train_state(path, state)
+        restored = ckpt_lib.restore_train_state(path, setup.fresh(seed=1))
+        diff = same_state(state, restored)
+        if diff is not None or restored.step != state.step:
+            raise RuntimeError(f"the checkpoint round trip differs at {diff}")
+        ga, gb = setup.gen(7), setup.gen(7)
+        for _ in range(2):
+            state, ma = setup.step(state, setup.batch, ga)
+            restored, mb = setup.step(restored, setup.batch, gb)
+            if not torch.equal(ma["loss"], mb["loss"]):
+                raise RuntimeError("resumed steps differ in the loss")
+        diff = same_state(state, restored)
+        if diff is not None:
+            raise RuntimeError(f"resumed steps differ at {diff}")
+    log(f"  checkpoint: {os.path.getsize(path)} bytes, round trip and 2 "
+        f"resumed steps equal bit for bit")
+
+    # Card vs CPU, one step at batch 4, 64^2, full depth, dropout off.
+    loss64, grad64, stat64 = step_card_vs_cpu(setup, torch.float64)
+    loss32, grad32, stat32 = step_card_vs_cpu(setup, torch.float32)
+    log(f"  card vs CPU, float64: loss {loss64:.3e} (bar "
+        f"{TRAIN_LOSS_REL:g}), gradients {grad64[0]:.3e} at {grad64[1]} "
+        f"(bar {TRAIN_GRAD_REL:g}), BN statistics {stat64[0]:.3e} at "
+        f"{stat64[1]} (bar {TRAIN_STAT_REL:g}); float32 (not gated): loss "
+        f"{loss32:.3e}, gradients {grad32[0]:.3e} at {grad32[1]}, "
+        f"statistics {stat32[0]:.3e}")
+    if (loss64 > TRAIN_LOSS_REL or grad64[0] > TRAIN_GRAD_REL
+            or stat64[0] > TRAIN_STAT_REL):
+        raise RuntimeError("train step: card and CPU disagree")
+    res["card_vs_cpu"] = dict(loss_f64=loss64, grad_f64=grad64[0],
+                              stat_f64=stat64[0], loss_f32=loss32,
+                              grad_f32=grad32[0], stat_f32=stat32[0])
+    res["launches"] = dict(native.LAUNCHES)
+    log(f"  launches {res['launches']}")
+    if any(res["launches"].values()):
+        raise RuntimeError("the training path launched a kernel")
+    return res
+
+
+def step_split(setup, state, gen, steps):
+    """CUDA-event ms of the forward (loss included), the backward and the
+    Adam step, each summed over ``steps`` steps and divided by them."""
+    import torch
+
+    from tpubody_torch.models import hmr_train
+
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+          for _ in range(steps)]
+    for e in ev:
+        e[0].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, _ = hmr_train.loss_fn(state.model, setup.smpl, setup.batch,
+                                    gen, img_size=float(TRAIN_SIZE))
+        e[1].record()
+        loss.backward()
+        e[2].record()
+        state.optimizer.step()
+        e[3].record()
+    torch.cuda.synchronize()
+    return {name: sum(e[i].elapsed_time(e[i + 1]) for e in ev) / steps
+            for i, name in enumerate(("forward", "backward", "adam"))}
+
+
+KERNEL_CLASSES = (("convolution", ("conv", "cudnn", "xmma", "implicit_gemm",
+                                   "winograd", "fft", "dgrad", "wgrad")),
+                  ("matmul", ("gemm", "gemv", "cublas", "sm90_", "cutlass")),
+                  ("reduction", ("reduce",)),
+                  ("elementwise", ("elementwise", "vectorized", "unrolled",
+                                   "fill", "copy", "CatArray", "where",
+                                   "index")))
+
+
+def step_kernel_classes(fn):
+    """fn under torch.profiler -> device ms by kernel class (name
+    patterns above, first match), the busy total and the kernel count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out, n = {}, 0
+    for e in prof.key_averages():
+        if (e.device_time_total <= 0
+                or e.device_type != torch.autograd.DeviceType.CUDA):
+            continue
+        name = e.key.lower()
+        cls = next((c for c, pats in KERNEL_CLASSES
+                    if any(p.lower() in name for p in pats)), "other")
+        out[cls] = out.get(cls, 0.0) + e.device_time_total / 1e3
+        n += e.count
+    busy = sum(out.values())
+    if busy <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return out, busy, n
+
+
+def phase_remat(dev, setup):
+    """The step with remat against without on the same batch and weights:
+    loss and gradients, BatchNorm statistics equal (one update a step),
+    peak memory, ms/step."""
+    import torch
+
+    from tpubody_torch import native
+    from tpubody_torch.models import hmr_train
+
+    native.reset_launches()
+    res, out = {}, {}
+    with deterministic():
+        for remat in (False, True):
+            state = setup.fresh(remat=remat)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss, _ = hmr_train.loss_fn(state.model, setup.smpl, setup.batch,
+                                        setup.gen(0),
+                                        img_size=float(TRAIN_SIZE))
+            loss.backward()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            out[remat] = (loss.detach(),
+                          {k: p.grad.clone()
+                           for k, p in state.model.named_parameters()},
+                          {k: x.clone()
+                           for k, x in state.model.state_dict().items()
+                           if "running" in k or "tracked" in k})
+            res[f"peak_gb_remat_{remat}"] = peak / 1e9
+            res[f"activation_gb_remat_{remat}"] = (peak - base) / 1e9
+            del state, loss
+    grad = max((rel_err(out[True][1][k], g), k)
+               for k, g in out[False][1].items())
+    unequal = [k for k, x in out[False][2].items()
+               if not torch.equal(out[True][2][k], x)]
+    tracked = {int(x) for k, x in out[True][2].items() if "tracked" in k}
+    loss_d = rel_err(out[True][0], out[False][0])
+    log(f"  remat vs none at batch {TRAIN_BATCH}, {TRAIN_SIZE}^2: loss "
+        f"{loss_d:.3e}, gradients {grad[0]:.3e} at {grad[1]} (bar "
+        f"{REMAT_GRAD_REL:g}), BN statistics unequal in {len(unequal)} "
+        f"tensors, num_batches_tracked {sorted(tracked)}; peak memory "
+        f"{res['peak_gb_remat_False']:.3f} GB without, "
+        f"{res['peak_gb_remat_True']:.3f} GB with remat (above the model: "
+        f"{res['activation_gb_remat_False']:.3f} / "
+        f"{res['activation_gb_remat_True']:.3f} GB)")
+    if (loss_d > REMAT_GRAD_REL or grad[0] > REMAT_GRAD_REL or unequal
+            or tracked != {1}):
+        raise RuntimeError("remat changed the step or the statistics")
+    if not res["peak_gb_remat_True"] < res["peak_gb_remat_False"]:
+        raise RuntimeError("remat did not lower the peak memory")
+    res.update(loss_rel=loss_d, grad_rel=grad[0])
+
+    for remat in (False, True):
+        state = setup.fresh(remat=remat)
+        gen = setup.gen(1)
+        for _ in range(3):
+            state, m = setup.step(state, setup.batch, gen)
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(TIMED_STEPS):
+            state, m = setup.step(state, setup.batch, gen)
+        e1.record()
+        torch.cuda.synchronize()
+        ms = e0.elapsed_time(e1) / TIMED_STEPS
+        res[f"ms_step_remat_{remat}"] = ms
+        res[f"images_s_remat_{remat}"] = TRAIN_BATCH / ms * 1e3
+        del state
+    log(f"  ms/step (CUDA events, {TIMED_STEPS} steps after 3): "
+        f"{res['ms_step_remat_False']:.3f} without remat = "
+        f"{res['images_s_remat_False']:.1f} images/s, "
+        f"{res['ms_step_remat_True']:.3f} with = "
+        f"{res['images_s_remat_True']:.1f} images/s")
+
+    # Where a step's time goes: forward / backward / Adam by CUDA events,
+    # the device time by kernel class under torch.profiler (3 steps), and
+    # the input pipeline's host time a batch (DeviceLoader: flips,
+    # collate, pinned copy on its side stream; no step consumes them).
+    from tpubody_torch.io import dataset as ds
+
+    for remat in (False, True):
+        state = setup.fresh(remat=remat)
+        gen = setup.gen(2)
+        step_split(setup, state, gen, 2)
+        res[f"split_remat_{remat}"] = step_split(setup, state, gen,
+                                                 TIMED_STEPS)
+        del state
+    state = setup.fresh()
+    gen = setup.gen(3)
+    classes, busy, n = step_kernel_classes(
+        lambda: [setup.step(state, setup.batch, gen) for _ in range(3)])
+    res["kernel_classes_ms_3_steps"] = classes
+    res["busy_ms_3_steps"] = busy
+    del state
+    loader = ds.DeviceLoader(setup.examples, batch_size=TRAIN_BATCH,
+                             num_epochs=None, prefetch=2, device=dev,
+                             transforms=[lambda e, r: ds.random_flip(e, r)])
+    it = iter(loader)
+    next(it)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2 * TIMED_STEPS):
+        next(it)
+    torch.cuda.synchronize()
+    res["loader_ms_batch"] = ((time.perf_counter() - t0)
+                              / (2 * TIMED_STEPS) * 1e3)
+    it.close()
+    def fmt(split):
+        return ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+
+    log(f"  split, ms a step (CUDA events): without remat "
+        f"{fmt(res['split_remat_False'])}; with "
+        f"{fmt(res['split_remat_True'])}; "
+        f"device ms by kernel class over 3 steps: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+            classes.items(), key=lambda kv: -kv[1]))
+        + f" (busy {busy:.3f} ms, {n} kernels and copies); DeviceLoader "
+        f"{res['loader_ms_batch']:.3f} ms a batch of {TRAIN_BATCH} on the "
+        f"host")
+    res["launches"] = dict(native.LAUNCHES)
+    if any(res["launches"].values()):
+        raise RuntimeError("the remat step launched a kernel")
+    return res
+
+
+def phase_pose2d(dev, workdir):
+    """train-pose2d at its defaults with --domain-rand, detect-pose on a
+    rendered image with its checkpoint, the synthesizer card vs CPU."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from tpubody_torch import cli, native
+    from tpubody_torch.fit import keypoints as kp_lib
+    from tpubody_torch.image import ops as img_ops
+    from tpubody_torch.models import humanoid, pose2d
+    from tpubody_torch.pipelines import pose_train
+    from tpubody_torch.utils import checkpoint as ckpt_lib
+
+    res = {}
+    ckpt = os.path.join(workdir, "pose2d.pt")
+    native.reset_launches()
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--device", str(dev), "train-pose2d", "--out", ckpt,
+                       "--steps", str(POSE_STEPS), "--domain-rand",
+                       "--chunk", str(POSE_CHUNK)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = re.search(r"pixel err: ([\d.naninf]+) -> ([\d.naninf]+)",
+                  buf.getvalue())
+    before, after = float(m.group(1)), float(m.group(2))
+    res.update(pixel_err_before=before, pixel_err_after=after,
+               cli_wall_s=wall, ms_per_step_cli=wall / POSE_STEPS * 1e3)
+    log(f"  train-pose2d --steps {POSE_STEPS} --domain-rand --chunk "
+        f"{POSE_CHUNK} (size 128, features 32, batch 16, 24 joints): rc "
+        f"{rc}, {wall:.3f} s = {res['ms_per_step_cli']:.3f} ms a step "
+        f"(render included); pixel error {before:.4f} -> {after:.4f}")
+    if rc != 0 or not after < before:
+        raise RuntimeError("train-pose2d did not reduce the pixel error")
+
+    # The step and the synthesizer alone (CUDA events).
+    raw = ckpt_lib.restore_pytree(ckpt)
+    model = pose2d.Pose2D(n_keypoints=int(raw["meta"]["n_keypoints"]),
+                          features=int(raw["meta"]["features"])).to(dev)
+    model.load_state_dict(raw["variables"])
+    step = pose2d.make_train_step(model, torch.optim.Adam(model.parameters(),
+                                                          lr=1e-3))
+    body = humanoid.humanoid(n_joints=24, n_verts=1200, seed=0, device=dev)
+    synth = pose_train.make_synthesizer(body, size=128, domain_rand=True)
+    gen = torch.Generator().manual_seed(11)
+    data = synth(gen, 16)
+    for name, fn in (("synth", lambda: synth(gen, 16)),
+                     ("step", lambda: step(data.images, data.keypoints))):
+        res[f"ms_{name}"] = time_ms(fn, iters=10, warmup=2)
+    log(f"  batch 16 at 128^2: synthesizer {res['ms_synth']:.3f} ms, train "
+        f"step {res['ms_step']:.3f} ms (CUDA events, 10 after 2)")
+
+    # detect-pose --ckpt on one rendered 256^2 image.
+    synth256 = pose_train.make_synthesizer(body, size=DETECT_SIZE)
+    img = synth256(torch.Generator().manual_seed(12), 1).images[0]
+    png = os.path.join(workdir, "person.png")
+    img_ops.write_image(png, img.cpu().numpy())
+    js = os.path.join(workdir, "0_keypoints.json")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["--device", str(dev), "detect-pose", png, js,
+                       "--ckpt", ckpt])
+    kps = kp_lib.read_openpose_json(js, use_hands=True).keypoints
+    log(f"  detect-pose --ckpt on a {DETECT_SIZE}^2 render: rc {rc}, "
+        f"{kps.shape[0]} slots read back, confidence of the 24 body slots "
+        f"{float(kps[:24, 2].mean()):.4f}")
+    if (rc != 0 or kps.shape[0] != 67 or not np.isfinite(kps).all()
+            or (kps[24:, 2] != 0).any()):
+        raise RuntimeError("detect-pose's JSON does not read back")
+
+    # The synthesizer on the card and on the CPU, the same draws.
+    host = pose_train.make_synthesizer(
+        humanoid.humanoid(n_joints=24, n_verts=1200, seed=0), size=128,
+        domain_rand=True)
+    draws = synth.draw(torch.Generator().manual_seed(13), POSE_CPU_BATCH)
+    a, b = synth.render(draws), host.render(draws)
+    kp_d = float((a.keypoints.cpu() - b.keypoints).abs().max())
+    off = float(((a.images.cpu() - b.images).abs().amax(-1)
+                 > POSE_IMG_ATOL).float().mean())
+    log(f"  synthesizer card vs CPU, {POSE_CPU_BATCH} x 128^2: keypoints "
+        f"{kp_d:.3e} px (bar {POSE_KP_ATOL:g}), pixels beyond "
+        f"{POSE_IMG_ATOL:g}: {100 * off:.4f}% (bar {100 * POSE_IMG_SHARE:g}%)")
+    if kp_d > POSE_KP_ATOL or off > POSE_IMG_SHARE:
+        raise RuntimeError("the synthesizer differs between card and CPU")
+    res.update(card_vs_cpu_kp_px=kp_d, card_vs_cpu_pixel_share=off)
+    res["launches"] = dict(native.LAUNCHES)
+    log(f"  launches {res['launches']}")
+    if any(res["launches"].values()):
+        raise RuntimeError("the pose2d path launched a kernel")
+    return res
+
+
+def phase_asf(dev, workdir):
+    """animate with an .amc clip and --asf through the CLI."""
+    import contextlib
+    import io
+
+    import torch
+
+    from tpubody_torch import cli, native
+    from tpubody_torch.io import asf as asf_lib
+    from tpubody_torch.pipelines import animate
+    from tpubody_torch.render import video
+
+    avatar, avatar_path, _ = make_avatar_and_clip(workdir)
+    asf, amc = (os.path.join(workdir, n) for n in ("skel.asf", "walk.amc"))
+    with open(asf, "w") as f:
+        f.write(SAMPLE_ASF)
+    with open(amc, "w") as f:
+        f.write(amc_text(ASF_FRAMES))
+    clip = asf_lib.read_amc(asf, amc)
+    moving = [j for j in range(24) if np.abs(clip.poses[:, j]).max() > 0]
+    cam_t = np.array([0.0, 0.0, ASF_CAM_Z])
+    plan, _, chunk = animate._tiled_plan(
+        avatar.v_template, avatar.faces, cam_t, ASF_SIZE, video.DEFAULT_FOCAL,
+        8, dev)
+    passes = 1 + sum(len(f) > 0 for f in plan["ladder_faces"])
+    want = -(-ASF_FRAMES // chunk) * passes
+
+    out = os.path.join(workdir, "walk.mp4")
+    native.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["--device", str(dev), "animate", avatar_path, amc,
+                       "--asf", asf, out, "--size", str(ASF_SIZE),
+                       "--stride", "1", "--cam-z", str(ASF_CAM_Z)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    import cv2
+    cap = cv2.VideoCapture(out)
+    frames = 0
+    while cap.read()[0]:
+        frames += 1
+    cap.release()
+    log(f"  animate walk.amc --asf skel.asf at {ASF_SIZE}^2: rc {rc}, "
+        f"{wall:.3f} s, {frames} frames in the MP4; SMPL joints moved "
+        f"{moving}; launches {launches} (fused_raster expected {want}: "
+        f"{passes} passes a block of {chunk})")
+    others = {k: v for k, v in launches.items() if k != "fused_raster"}
+    if (rc != 0 or frames != ASF_FRAMES or launches["fused_raster"] != want
+            or any(others.values()) or moving != [0, 1, 4]):
+        raise RuntimeError("the .amc animation failed its gates")
+    return dict(wall_s=wall, frames=frames, launches=launches,
+                passes=passes)
+
+
 ALL_PHASES = ("lbs", "serve", "bench", "raster", "video", "oracle", "vtiming",
               "zbuffer", "reconstruct", "rtiming", "stage", "backbone",
-              "fit", "fitserve", "ftiming", "rwhole", "demo")
+              "fit", "fitserve", "ftiming", "rwhole", "demo", "train",
+              "remat", "pose2d", "asf")
 EXTRA_PHASES = ("vprofile",)
 
 
@@ -2915,10 +3609,40 @@ def main() -> int:
         finally:
             shutil.rmtree(whole_dir, ignore_errors=True)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    if set(phases) & {"train", "remat", "pose2d", "asf"}:
+        train_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+        try:
+            if set(phases) & {"train", "remat"}:
+                train_setup = TrainSetup(dev)
+            if "train" in phases:
+                log(f"phase 20: train-hmr at its defaults (--render "
+                    f"{TRAIN_RENDER}, batch {TRAIN_BATCH}, {TRAIN_SIZE}^2)")
+                train = phase_train(dev, train_dir, train_setup)
+                log(json.dumps({"train": train, "card": card_line()}))
+                for k in kernels:
+                    k["launches_train"] = train["launches"][k["name"]]
+            if "remat" in phases:
+                log("phase 21: remat against none")
+                remat = phase_remat(dev, train_setup)
+                log(json.dumps({"remat": remat, "card": card_line()}))
+                for k in kernels:
+                    k["launches_remat"] = remat["launches"][k["name"]]
+            if "pose2d" in phases:
+                log("phase 22: train-pose2d and detect-pose")
+                pose = phase_pose2d(dev, train_dir)
+                log(json.dumps({"pose2d": pose, "card": card_line()}))
+                for k in kernels:
+                    k["launches_pose2d"] = pose["launches"][k["name"]]
+            if "asf" in phases:
+                log(f"phase 23: animate an .amc clip at {ASF_SIZE}^2")
+                asf = phase_asf(dev, train_dir)
+                log(json.dumps({"asf": asf, "card": card_line()}))
+                for k in kernels:
+                    k["launches_asf"] = asf["launches"][k["name"]]
+        finally:
+            shutil.rmtree(train_dir, ignore_errors=True)
+
+    smi = card_line()
     if not full:
         log(f"phases {phases} passed on {smi} (subset: no result line)")
         return 0

@@ -197,3 +197,112 @@ def test_commands_default_to_the_card(tmp_path):
         pytest.skip("a card is present: the default runs there")
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         cli.main(["demo", str(tmp_path / "d"), "--size", "64"])
+
+
+def _amc_files(tmp_path, frames=3):
+    from tests.test_asf import SAMPLE_AMC, SAMPLE_ASF
+
+    asf = tmp_path / "skel.asf"
+    amc = tmp_path / "walk.amc"
+    asf.write_text(SAMPLE_ASF)
+    body = SAMPLE_AMC.split("1\n", 1)[0]
+    for f in range(frames):
+        body += (f"{f + 1}\nroot {0.1 * f} 16.0 -2.0 {5.0 * f} -5.0 3.0\n"
+                 f"lfemur {10.0 + 5 * f} -8.0 5.0\nltibia {20.0 + 7 * f}\n")
+    amc.write_text(body)
+    return str(asf), str(amc)
+
+
+def test_export_glb_amc_equals_tpubodys_cli(tmp_path):
+    t_av, _ = avatar(seed=3)
+    pkl = str(tmp_path / "avatar.pkl")
+    TRig.save_avatar(pkl, t_av)
+    asf, amc = _amc_files(tmp_path)
+    extra = ["--clip", amc, "--asf", asf, "--fps", "30"]
+    t_out, j_out = str(tmp_path / "t.glb"), str(tmp_path / "j.glb")
+    assert cli.main(["export-glb", pkl, t_out] + extra) == 0
+    assert jcli.main(["export-glb", pkl, j_out] + extra) == 0
+    assert open(t_out, "rb").read() == open(j_out, "rb").read()
+    assert "animations" in TGl.read_glb(t_out)[0]
+
+
+def test_animate_amc_clip(tmp_path):
+    import cv2
+
+    t_av, _ = avatar(seed=3)
+    pkl = str(tmp_path / "avatar.pkl")
+    TRig.save_avatar(pkl, t_av)
+    asf, amc = _amc_files(tmp_path, frames=4)
+    out = str(tmp_path / "a.mp4")
+    assert cli.main(["--device", "cpu", "animate", pkl, amc, "--asf", asf,
+                     out, "--size", "64", "--stride", "1",
+                     "--cam-z", "3.0"]) == 0
+    cap = cv2.VideoCapture(out)
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    assert n == 4
+
+
+def test_train_hmr_command(tmp_path, capsys):
+    from tpubody_torch.models import hmr as thmr
+    from tpubody_torch.models import hmr_train as ttrain
+    from tpubody_torch.utils import checkpoint as tckpt
+    from tpubody_torch.utils.metrics import read_jsonl
+
+    out = str(tmp_path / "hmr.pt")
+    assert cli.main(["--device", "cpu", "train-hmr", "--synthetic", "8",
+                     "--batch", "4", "--size", "64", "--steps", "2",
+                     "--out", out]) == 0
+    printed = capsys.readouterr().out
+    assert "step 0: loss" in printed and "eval: mpjpe" in printed
+    recs = read_jsonl(out + "_metrics.jsonl")
+    assert [r["tag"] for r in recs] == ["train", "train", "eval"]
+    assert all(np.isfinite(r["loss"]) for r in recs[:2])
+    assert {"mpjpe", "pa_mpjpe", "pve"} <= set(recs[2])
+    template = ttrain.create_train_state(
+        thmr.create_hmr(dtype=torch.float32, device="cpu"))
+    state = tckpt.restore_train_state(out, template)
+    assert state.step == 2
+    assert int(state.model.state_dict()[
+        "backbone.bn1.num_batches_tracked"]) == 2
+
+
+def test_train_pose2d_then_detect_pose(tmp_path, capsys):
+    import cv2
+
+    from tpubody_torch.fit import keypoints as tkp
+    from tpubody_torch.utils import checkpoint as tckpt
+
+    ckpt = str(tmp_path / "pose2d.pt")
+    assert cli.main(["--device", "cpu", "train-pose2d", "--out", ckpt,
+                     "--steps", "3", "--batch", "2", "--size", "32",
+                     "--features", "8", "--chunk", "2",
+                     "--domain-rand"]) == 0
+    assert "pixel err:" in capsys.readouterr().out
+    raw = tckpt.restore_pytree(ckpt)
+    assert int(raw["meta"]["n_keypoints"]) == 24
+    assert isinstance(raw["meta"]["features"], np.ndarray)
+
+    img = str(tmp_path / "person.png")
+    cv2.imwrite(img, np.random.default_rng(0).integers(
+        0, 255, (80, 60, 3), dtype=np.uint8))
+    js = str(tmp_path / "0_keypoints.json")
+    assert cli.main(["--device", "cpu", "detect-pose", img, js, "--size",
+                     "32", "--ckpt", ckpt]) == 0
+    kp = tkp.read_openpose_json(js, use_hands=True, use_face=False)
+    assert kp.keypoints.shape[0] == 67
+    assert np.isfinite(kp.keypoints).all()
+    assert (kp.keypoints[24:, 2] == 0).all()     # padded slots
+
+
+def test_detect_pose_without_ckpt_warns(tmp_path, capsys):
+    import cv2
+
+    img = str(tmp_path / "person.png")
+    cv2.imwrite(img, np.zeros((40, 40, 3), np.uint8))
+    js = str(tmp_path / "k.json")
+    assert cli.main(["--device", "cpu", "detect-pose", img, js, "--size",
+                     "32"]) == 0
+    assert "untrained weights" in capsys.readouterr().err

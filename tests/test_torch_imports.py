@@ -40,6 +40,8 @@ MODULES = [
     "tpubody_torch.image.mvc",
     "tpubody_torch.image.ops",
     "tpubody_torch.image.warp",
+    "tpubody_torch.io.asf",
+    "tpubody_torch.io.dataset",
     "tpubody_torch.io.motion",
     "tpubody_torch.mesh.bspline",
     "tpubody_torch.mesh.decimate",
@@ -53,13 +55,16 @@ MODULES = [
     "tpubody_torch.mesh.stitch",
     "tpubody_torch.models.fused_resnet",
     "tpubody_torch.models.hmr",
+    "tpubody_torch.models.hmr_train",
     "tpubody_torch.models.humanoid",
     "tpubody_torch.models.params",
+    "tpubody_torch.models.pose2d",
     "tpubody_torch.models.smpl",
     "tpubody_torch.pipelines.animate",
     "tpubody_torch.pipelines.demo",
     "tpubody_torch.pipelines.gen_smplh",
     "tpubody_torch.pipelines.hmr_infer",
+    "tpubody_torch.pipelines.pose_train",
     "tpubody_torch.pipelines.reconstruct",
     "tpubody_torch.pipelines.refine",
     "tpubody_torch.pipelines.serving",
@@ -71,6 +76,9 @@ MODULES = [
     "tpubody_torch.render.viewer",
     "tpubody_torch.solve.normal2depth",
     "tpubody_torch.utils.cache",
+    "tpubody_torch.utils.checkpoint",
+    "tpubody_torch.utils.metrics",
+    "tpubody_torch.utils.pose_eval",
     "tpubody_torch.utils.profiling",
 ]
 

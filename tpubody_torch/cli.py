@@ -1,18 +1,19 @@
 """Command-line interface of the port (port of ``tpubody.cli``): the
-reference's entry points over the paths ``tpubody_torch`` has.
+reference's entry points and the framework's training commands.
 
   python -m tpubody_torch.cli gen-smplh  <img> <keypoints.json> <out_dir>
   python -m tpubody_torch.cli reconstruct <test_dir> [--out <dir>]
   python -m tpubody_torch.cli animate     <avatar.pkl> <clip> <out.mp4>
   python -m tpubody_torch.cli demo        <out_dir>
+  python -m tpubody_torch.cli train-hmr   --synthetic N --out <ckpt>
 
 and ``gen-smplh-batch``, ``refine``, ``fit-video``, ``export-glb``,
-``infer`` and ``animate-batch``.  Every command runs on the card unless
-``--device cpu`` is given before the command's name.
+``infer``, ``animate-batch``, ``train-pose2d`` and ``detect-pose``.  Every
+command runs on the card unless ``--device cpu`` is given before the
+command's name.  Checkpoints are single files (``utils/checkpoint.py``).
 
-Not here yet (their modules belong to a later slice of the port):
-``detect-pose``, ``train-pose2d``, ``train-hmr``, ``--shard`` of
-``gen-smplh-batch`` and CMU ``.amc`` clips with ``--asf``.
+Not here yet (its module belongs to the last slice of the port):
+``--shard`` of ``gen-smplh-batch``.
 """
 from __future__ import annotations
 
@@ -88,18 +89,19 @@ def _cmd_reconstruct(args) -> int:
     return 0
 
 
-def _load_clip(clip_path, stride=1):
-    """Load a motion clip by extension: AMASS .npz or a Mixamo result.pkl
-    (which always plays at stride 1, model2video_miaxmo convention).
-    Returns (MotionClip, effective stride)."""
+def _load_clip(clip_path, asf=None, stride=1):
+    """Load a motion clip by extension: AMASS .npz, CMU .amc (+ --asf), or a
+    Mixamo result.pkl (which always plays at stride 1, model2video_miaxmo
+    convention).  Returns (MotionClip, effective stride)."""
     from tpubody_torch.io import motion as motion_lib
 
     if clip_path.endswith(".npz"):
         return motion_lib.read_amass(clip_path), stride
     if clip_path.endswith(".amc"):
-        raise SystemExit("CMU .amc clips (with an .asf skeleton) are not "
-                         "read by tpubody_torch yet; use an AMASS .npz or "
-                         "a Mixamo result.pkl")
+        if not asf:
+            raise SystemExit("--asf <skeleton.asf> is required for .amc clips")
+        from tpubody_torch.io import asf as asf_lib
+        return asf_lib.read_amc(asf, clip_path), stride
     return motion_lib.read_mixamo(clip_path), 1
 
 
@@ -111,7 +113,7 @@ def _cmd_animate(args) -> int:
     if args.decimate:
         from tpubody_torch.mesh import decimate
         avatar = decimate.decimate_avatar(avatar, target_verts=args.decimate)
-    clip, stride = _load_clip(args.clip, args.stride)
+    clip, stride = _load_clip(args.clip, args.asf, args.stride)
     animate.animate_video(avatar, clip, args.out, size=args.size,
                           fps=args.fps, stride=stride,
                           cam_t=np.asarray([0.0, 0.0, args.cam_z]),
@@ -196,7 +198,7 @@ def _cmd_export_glb(args) -> int:
     poses = trans = None
     fps = args.fps
     if args.clip:
-        clip, stride = _load_clip(args.clip, args.stride)
+        clip, stride = _load_clip(args.clip, args.asf, args.stride)
         poses = clip.poses[::stride]
         trans = clip.trans[::stride]
         if fps is None:
@@ -249,6 +251,193 @@ def _cmd_animate_batch(args) -> int:
     return 0
 
 
+def _cmd_train_pose2d(args) -> int:
+    """Renderer-supervised pose2d training (pipelines/pose_train.py);
+    saves a checkpoint consumable by detect-pose --ckpt."""
+    from tpubody_torch.pipelines import pose_train
+    from tpubody_torch.utils import checkpoint as ckpt_lib
+
+    init_params = None
+    if args.resume:
+        init_params = ckpt_lib.restore_pytree(args.resume)["variables"]
+        print(f"resuming from {args.resume}")
+
+    # Bundle the architecture with the weights so detect-pose can rebuild
+    # the exact model (the synthetic trainer uses the body's joint count —
+    # its n_joints default — not the 67-slot OpenPose layout).
+    n_kp = 24
+
+    def save(variables):
+        ckpt_lib.save_pytree(args.out, {
+            "variables": variables,
+            "meta": {"n_keypoints": np.asarray(n_kp),
+                     "features": np.asarray(args.features)},
+        })
+
+    chunk = max(1, args.chunk)
+    save_every = max(chunk, args.save_every)
+
+    def on_chunk(variables, done):
+        # Periodic checkpointing: a crash costs at most save_every steps,
+        # and --resume continues from the last save.  (done advances in
+        # `chunk`-step increments, so the window scales with the chunk.)
+        if done % save_every < chunk:
+            save(variables)
+
+    res = pose_train.train_pose2d_synthetic(
+        steps=args.steps, batch=args.batch, size=args.size,
+        features=args.features, lr=args.lr, domain_rand=args.domain_rand,
+        init_params=init_params, on_chunk=on_chunk, chunk=args.chunk,
+        device=args.device)
+    if res.model.n_keypoints != n_kp:
+        raise RuntimeError(f"trained {res.model.n_keypoints} keypoints, "
+                           f"the checkpoint says {n_kp}")
+    save(res.params)
+    print(f"pixel err: {res.pixel_err_before:.4f} -> "
+          f"{res.pixel_err_after:.4f} px over {args.steps} steps")
+    print(f"wrote checkpoint to {args.out}")
+    return 0
+
+
+def _cmd_train_hmr(args) -> int:
+    """Train HMR with the input pipeline in fp32; saves a checkpoint and
+    ``<out>_metrics.jsonl``.
+
+    Data: an .npz with images (N,S,S,3), keypoints2d (N,24,3) and optional
+    gt_rotmats (N,24,3,3) / gt_shape (N,10) — or --synthetic N for a
+    self-contained smoke run, or --render N for renderer-supervised
+    humanoid examples."""
+    import torch
+
+    from tpubody_torch.device import resolve
+    from tpubody_torch.io import dataset as ds
+    from tpubody_torch.models import hmr as hmr_lib
+    from tpubody_torch.models import hmr_train
+    from tpubody_torch.models import params as params_lib
+    from tpubody_torch.utils import checkpoint as ckpt_lib
+    from tpubody_torch.utils.metrics import MetricsLogger
+
+    dev = resolve(args.device)
+    if args.render:
+        data = ds.ArrayDataset([
+            ds.preprocess_example(e, size=args.size)
+            for e in ds.rendered_hmr_dataset(
+                args.render, image_size=args.size + 16, device=dev)._examples])
+    elif args.synthetic:
+        data = ds.ArrayDataset([
+            ds.preprocess_example(e, size=args.size)
+            for e in ds.synthetic_hmr_dataset(
+                args.synthetic, image_size=args.size + 16)._examples])
+    else:
+        z = np.load(args.data)
+        n = len(z["images"])
+        data = ds.ArrayDataset([
+            ds.HMRExample(
+                z["images"][i], z["keypoints2d"][i],
+                z["gt_rotmats"][i] if "gt_rotmats" in z else None,
+                z["gt_shape"][i] if "gt_shape" in z else None)
+            for i in range(n)])
+
+    model = hmr_lib.create_hmr(dtype=torch.float32, device=dev,
+                               remat=args.remat)
+    if args.render:
+        # --render labels come from the capsule humanoid; the reprojection
+        # loss / 3D eval must use the SAME body or their targets are
+        # unreachable.
+        from tpubody_torch.models import humanoid as humanoid_lib
+        smpl = humanoid_lib.humanoid(
+            n_joints=24, n_verts=max(args.verts, 1200), seed=0, device=dev)
+    else:
+        smpl = params_lib.synthetic(n_joints=24, n_verts=args.verts, seed=0,
+                                    device=dev)
+    state = hmr_train.create_train_state(model, lr=args.lr)
+    step = hmr_train.make_train_step(smpl, img_size=float(args.size))
+
+    loader = ds.DeviceLoader(
+        data, batch_size=args.batch, num_epochs=None, seed=0,
+        transforms=[lambda e, r: ds.random_flip(e, r)], device=dev)
+    rng = torch.Generator(device=dev).manual_seed(0)
+    it = iter(loader)
+    try:
+        with MetricsLogger(args.out + "_metrics.jsonl") as mlog:
+            for i in range(args.steps):
+                state, metrics = step(state, next(it), rng)
+                loss = float(metrics["loss"])
+                mlog.log("train", step=i, loss=loss)
+                if i % max(1, args.steps // 10) == 0:
+                    print(f"step {i}: loss {loss:.4f}")
+            # Final 3D eval (MPJPE/PA-MPJPE/PVE, utils.pose_eval) on a
+            # fresh batch when the data carries GT SMPL parameters.
+            batch = next(it)
+            if float(batch.has_smpl.sum()) > 0:
+                ev = hmr_train.make_eval_step(smpl)(state, batch)
+                ev = {k: float(v) for k, v in ev.items()}
+                mlog.log("eval", step=args.steps, **ev)
+                print("eval: " + "  ".join(f"{k} {v:.4f}"
+                                           for k, v in ev.items()))
+    finally:
+        it.close()
+    ckpt_lib.save_train_state(args.out, state)
+    print(f"saved checkpoint to {args.out}")
+    return 0
+
+
+def _cmd_detect_pose(args) -> int:
+    """Image -> 0_keypoints.json via the in-framework detector (the
+    reference's lib/openpose.py openpose(img, save) contract)."""
+    import json
+
+    import torch
+
+    from tpubody_torch.device import resolve
+    from tpubody_torch.image import ops as img_ops
+    from tpubody_torch.models import pose2d
+
+    dev = resolve(args.device)
+    img = img_ops.read_image(args.img)
+    H = args.size
+    side = max(img.shape[:2])
+    inp = img_ops.scale_and_crop(
+        img, (img.shape[1] / 2.0, img.shape[0] / 2.0), side / 200.0, H)
+    if args.ckpt:
+        from tpubody_torch.utils import checkpoint as ckpt_lib
+        raw = ckpt_lib.restore_pytree(args.ckpt)
+        if "meta" in raw:
+            meta = raw["meta"]
+            model = pose2d.Pose2D(
+                n_keypoints=int(np.asarray(meta["n_keypoints"])),
+                features=int(np.asarray(meta["features"])))
+            model.load_state_dict(raw["variables"])
+        else:  # bare state_dict: must match the default architecture
+            model = pose2d.Pose2D()
+            model.load_state_dict(raw)
+        model.to(dev)
+    else:
+        model = pose2d.create_pose2d(device=dev)
+        print("WARNING: detect-pose is EXPERIMENTAL and running with "
+              "untrained weights — keypoints will not be usable for "
+              "fitting; train with `train-pose2d` and pass --ckpt.",
+              file=sys.stderr)
+    with torch.no_grad():
+        out = pose2d.detect(model.eval(), torch.as_tensor(
+            inp[None] / 255.0, dtype=torch.float32, device=dev))
+    kp = out.keypoints[0].double().cpu().numpy()
+    # map from the square crop back to original pixels
+    ratio = side / float(H)
+    kp[:, 0] = kp[:, 0] * ratio + (img.shape[1] - side) / 2.0
+    kp[:, 1] = kp[:, 1] * ratio + (img.shape[0] - side) / 2.0
+    if kp.shape[0] < pose2d.N_KEYPOINTS:
+        # models trained on fewer joints (synthetic bodies) fill the
+        # leading body slots; the rest stay confidence-0
+        pad = np.zeros((pose2d.N_KEYPOINTS - kp.shape[0], 3), np.float64)
+        kp = np.concatenate([kp, pad], axis=0)
+    person = pose2d.keypoints_to_openpose(kp)
+    with open(args.out, "w") as f:
+        json.dump({"version": 1.3, "people": [person]}, f)
+    print(f"wrote {args.out}")
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m tpubody_torch.cli")
     parser.add_argument("--device", default="cuda",
@@ -292,7 +481,9 @@ def main(argv=None) -> int:
 
     p = sub.add_parser("animate", help="render avatar + motion clip to MP4")
     p.add_argument("avatar", help="rigged avatar pickle (or_recover.pkl)")
-    p.add_argument("clip", help="AMASS .npz or Mixamo result.pkl")
+    p.add_argument("clip", help="AMASS .npz, Mixamo result.pkl, or CMU .amc")
+    p.add_argument("--asf", default=None,
+                   help="ASF skeleton file (required for .amc clips)")
     p.add_argument("out", help="output .mp4")
     p.add_argument("--size", type=int, default=1024)
     p.add_argument("--fps", type=float, default=None)
@@ -348,8 +539,10 @@ def main(argv=None) -> int:
     p.add_argument("avatar", help="rigged avatar pickle (or_recover.pkl)")
     p.add_argument("out", help="output .glb")
     p.add_argument("--clip", default=None,
-                   help="AMASS .npz or Mixamo result.pkl to embed as a "
-                        "glTF animation")
+                   help="AMASS .npz, Mixamo result.pkl, or CMU .amc to "
+                        "embed as a glTF animation")
+    p.add_argument("--asf", default=None,
+                   help="ASF skeleton file (required for .amc clips)")
     p.add_argument("--stride", type=int, default=1)
     p.add_argument("--fps", type=float, default=None,
                    help="animation sample rate (default: the clip's)")
@@ -381,6 +574,61 @@ def main(argv=None) -> int:
                         "conventional asset spots / TPUBODY_SMPL_PATH, "
                         "then a synthetic stand-in with a warning")
     p.set_defaults(fn=_cmd_infer)
+
+    p = sub.add_parser(
+        "detect-pose",
+        help="[EXPERIMENTAL] detect 2D keypoints -> OpenPose-format JSON "
+             "(lib/openpose.py); without a trained --ckpt the detector is "
+             "untrained and its keypoints are not usable for fitting")
+    p.add_argument("img")
+    p.add_argument("out", help="output keypoints .json")
+    p.add_argument("--size", type=int, default=256,
+                   help="square inference resolution")
+    p.add_argument("--ckpt", default=None,
+                   help="trained pose2d checkpoint (train-pose2d's file)")
+    p.set_defaults(fn=_cmd_detect_pose)
+
+    p = sub.add_parser(
+        "train-pose2d",
+        help="[EXPERIMENTAL] train the 2D keypoint detector on rendered "
+             "synthetic bodies; saves a checkpoint for detect-pose")
+    p.add_argument("--out", required=True, help="checkpoint output file")
+    p.add_argument("--steps", type=int, default=500)
+    p.add_argument("--batch", type=int, default=16)
+    p.add_argument("--size", type=int, default=128)
+    p.add_argument("--features", type=int, default=32)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--domain-rand", action="store_true",
+                   help="randomize orientation/camera/background/photometry/"
+                        "occlusion for transfer (pose_train.make_synthesizer)")
+    p.add_argument("--resume", default=None,
+                   help="checkpoint file to resume the weights from")
+    p.add_argument("--save-every", type=int, default=500,
+                   help="checkpoint every N steps (crash costs at most N)")
+    p.add_argument("--chunk", type=int, default=100,
+                   help="steps between checkpoint checks (tpubody's "
+                        "compiled scan length; the last chunk runs whole)")
+    p.set_defaults(fn=_cmd_train_pose2d)
+
+    p = sub.add_parser("train-hmr",
+                       help="train HMR (keypoint + SMPL supervision)")
+    p.add_argument("--data", default=None, help="dataset .npz")
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="use N synthetic (noise-image) examples instead "
+                        "of --data")
+    p.add_argument("--render", type=int, default=0,
+                   help="use N renderer-supervised humanoid examples "
+                        "(true rotmat/shape/keypoint labels)")
+    p.add_argument("--out", required=True, help="checkpoint output file")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--batch", type=int, default=32)
+    p.add_argument("--size", type=int, default=224)
+    p.add_argument("--verts", type=int, default=6890)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize backbone blocks on backward "
+                        "(less activation memory, larger batches)")
+    p.set_defaults(fn=_cmd_train_hmr)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -47,12 +47,15 @@ _PARENT_INDEX: dict = {}
 def _parent_index(parents: Sequence[int], device) -> torch.Tensor:
     """The parent of every joint (the root its own) as an index tensor on
     ``device``, built once: indexing with a host list would copy it to
-    the card on every call, which a captured CUDA graph cannot hold."""
+    the card on every call, which a captured CUDA graph cannot hold.
+    Made outside inference mode: a cached inference tensor could not be
+    saved for backward by a later training step."""
     key = (tuple(int(p) for p in parents), str(device))
     t = _PARENT_INDEX.get(key)
     if t is None:
-        t = _PARENT_INDEX[key] = torch.tensor(
-            [0] + [int(p) for p in parents[1:]], device=device)
+        with torch.inference_mode(False):
+            t = _PARENT_INDEX[key] = torch.tensor(
+                [0] + [int(p) for p in parents[1:]], device=device)
     return t
 
 

@@ -81,7 +81,8 @@ _INDEX_CACHE: dict = {}
 
 def _index(ids, device) -> torch.Tensor:
     """Index table on ``device``, copied there once: a host table copied
-    to the card on every objective evaluation would stall the stream."""
+    to the card on every objective evaluation would stall the stream.
+    Made outside inference mode, so autograd may save it later."""
     if isinstance(ids, torch.Tensor):
         return ids.to(device)
     a = np.ascontiguousarray(ids, np.int64)
@@ -90,7 +91,8 @@ def _index(ids, device) -> torch.Tensor:
     if t is None:
         if len(_INDEX_CACHE) > 256:
             _INDEX_CACHE.clear()
-        t = _INDEX_CACHE[key] = torch.as_tensor(a, device=device)
+        with torch.inference_mode(False):
+            t = _INDEX_CACHE[key] = torch.as_tensor(a, device=device)
     return t
 
 

@@ -49,11 +49,12 @@ _ANGLE_TABLES: dict = {}
 def angle_prior(body_pose: torch.Tensor) -> torch.Tensor:
     """body_pose: (..., 63 or 69).  Returns (..., 4) penalties."""
     key = (body_pose.device, body_pose.dtype)
-    if key not in _ANGLE_TABLES:   # on the device once (CUDA graphs)
-        _ANGLE_TABLES[key] = (
-            torch.as_tensor(ANGLE_PRIOR_IDXS, device=body_pose.device),
-            torch.as_tensor(ANGLE_PRIOR_SIGNS, dtype=body_pose.dtype,
-                            device=body_pose.device))
+    if key not in _ANGLE_TABLES:   # on the device once (CUDA graphs),
+        with torch.inference_mode(False):   # saveable for backward later
+            _ANGLE_TABLES[key] = (
+                torch.as_tensor(ANGLE_PRIOR_IDXS, device=body_pose.device),
+                torch.as_tensor(ANGLE_PRIOR_SIGNS, dtype=body_pose.dtype,
+                                device=body_pose.device))
     idx, signs = _ANGLE_TABLES[key]
     comp = body_pose[..., idx]
     return torch.exp(comp * signs) ** 2

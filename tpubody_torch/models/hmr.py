@@ -8,6 +8,13 @@ the card; the NHWC input permuted to NCHW is already channels_last, and
 the conv weights are kept channels_last), while ``decpose``/``decshape``/
 ``deccam`` and the IEF state stay fp32.  IEF is a static loop; dropout and
 BatchNorm follow ``module.train()`` / ``eval()`` (eval at inference).
+In train mode BatchNorm keeps Flax's running statistics (biased batch
+variance, momentum 0.9 on the running average) and dropout draws its
+masks from the ``torch.Generator`` passed to ``forward`` (the
+counterpart of ``rngs={"dropout": rng}``).  ``remat=True`` recomputes
+each bottleneck in backward (``torch.utils.checkpoint``) without a second
+update of the statistics, as ``nn.remat`` discards the recomputation's
+``batch_stats``.
 
 State-dict names follow the reference torch model (torchvision-style
 ``conv1``, ``layer{1..4}.{j}.conv{1..3}``, ``downsample.0/1``) under a
@@ -15,6 +22,7 @@ State-dict names follow the reference torch model (torchvision-style
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, NamedTuple, Optional, Sequence
 
@@ -22,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tpubody_torch.core.rotations import rot6d_to_rotmat
 from tpubody_torch.device import DeviceLike, resolve
@@ -38,9 +47,49 @@ class HMROutput(NamedTuple):
     pose6d: torch.Tensor   # (B, 144) raw 6D pose (pre-Gram-Schmidt)
 
 
-def _bn(ch: int) -> nn.BatchNorm2d:
-    # Flax momentum 0.9 on the running average == torch momentum 0.1.
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """Flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``.  Eval mode is
+    PyTorch's.  Train mode computes the batch statistics as Flax does, in
+    f32 with the biased variance as E[x^2] - E[x]^2 (clamped at 0),
+    normalises by them with gradients through both, and folds the
+    *biased* variance into ``running_var`` (PyTorch's own update uses the
+    unbiased one, n/(n-1) larger): ``running = 0.9 * running + 0.1 *
+    batch``.  While ``update_stats`` is False (a remat recomputation) the
+    statistics stay as they are."""
+
+    def __init__(self, ch: int):
+        super().__init__(ch, eps=1e-5, momentum=0.1)
+        self.update_stats = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                          min=0.0)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+                self.running_var.mul_(0.9).add_(var, alpha=0.1)
+                self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def _stats_frozen(block: nn.Module):
+    """Hold ``block``'s BatchNorm statistics while remat recomputes it."""
+    bns = [m for m in block.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
 
 
 class Bottleneck(nn.Module):
@@ -49,18 +98,18 @@ class Bottleneck(nn.Module):
     def __init__(self, in_features: int, features: int, strides: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(in_features, features, 1, bias=False)
-        self.bn1 = _bn(features)
+        self.bn1 = BatchNorm2d(features)
         self.conv2 = nn.Conv2d(features, features, 3, stride=strides,
                                padding=1, bias=False)
-        self.bn2 = _bn(features)
+        self.bn2 = BatchNorm2d(features)
         self.conv3 = nn.Conv2d(features, features * 4, 1, bias=False)
-        self.bn3 = _bn(features * 4)
+        self.bn3 = BatchNorm2d(features * 4)
         self.downsample = None
         if in_features != features * 4 or strides != 1:
             self.downsample = nn.Sequential(
                 nn.Conv2d(in_features, features * 4, 1, stride=strides,
                           bias=False),
-                _bn(features * 4))
+                BatchNorm2d(features * 4))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -81,17 +130,22 @@ class ResNet50(nn.Module):
     ((B, H/2, W/2, 16)), and an equivalent 4x4/stride-1 convolution gives
     the same outputs.  The parameter stays the canonical (64, 3, 7, 7)
     ``conv1.weight`` and is rearranged in ``forward``, so state dicts do
-    not depend on the stem.  An odd height or width falls back to conv7."""
+    not depend on the stem.  An odd height or width falls back to conv7.
+
+    ``remat=True`` rematerialises each bottleneck in backward: its
+    activations are recomputed instead of stored (about a third more
+    forward work for less live activation memory)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 stem: str = "conv7"):
+                 stem: str = "conv7", remat: bool = False):
         super().__init__()
         if stem not in STEMS:
             raise ValueError(f"stem={stem!r}: expected one of {STEMS}")
         self.stage_sizes = tuple(stage_sizes)
         self.stem_kind = stem
+        self.remat = remat
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = _bn(64)
+        self.bn1 = BatchNorm2d(64)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         in_features = 64
         for i, (n_blocks, feats) in enumerate(
@@ -134,8 +188,16 @@ class ResNet50(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x = self.stem(images)
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(len(self.stage_sizes)):
-            x = getattr(self, f"layer{i + 1}")(x)
+            for block in getattr(self, f"layer{i + 1}"):
+                if remat:
+                    x = checkpoint(
+                        block, x, use_reentrant=False,
+                        context_fn=lambda b=block: (contextlib.nullcontext(),
+                                                    _stats_frozen(b)))
+                else:
+                    x = block(x)
         return torch.mean(x, dim=(2, 3))   # global average pool
 
 
@@ -144,13 +206,13 @@ class HMR(nn.Module):
 
     def __init__(self, mean_params: np.ndarray, n_iter: int = 3,
                  stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 stem: str = "conv7"):
+                 stem: str = "conv7", remat: bool = False):
         super().__init__()
         self.n_iter = n_iter
         self.register_buffer(
             "mean_params", torch.as_tensor(np.asarray(mean_params, np.float32)),
             persistent=False)
-        self.backbone = ResNet50(stage_sizes, stem)
+        self.backbone = ResNet50(stage_sizes, stem, remat)
         self.fc1 = nn.Linear(2048 + NPOSE + 13, 1024)
         self.fc2 = nn.Linear(1024, 1024)
         self.decpose = nn.Linear(1024, NPOSE)
@@ -158,11 +220,27 @@ class HMR(nn.Module):
         self.deccam = nn.Linear(1024, 3)
         self.drop = nn.Dropout(0.5)
 
-    def forward(self, images: torch.Tensor) -> HMROutput:
-        """images: (B, H, W, 3) NHWC, normalised."""
-        return self.ief(self.backbone(images))
+    def forward(self, images: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> HMROutput:
+        """images: (B, H, W, 3) NHWC, normalised.  ``rng``: the dropout
+        masks' generator (on the images' device), needed in train mode."""
+        return self.ief(self.backbone(images), rng)
 
-    def ief(self, xf: torch.Tensor) -> HMROutput:
+    def _dropout(self, h: torch.Tensor,
+                 rng: Optional[torch.Generator]) -> torch.Tensor:
+        """Flax's ``nn.Dropout``: keep with probability 1 - p, scale kept
+        values by 1 / (1 - p); the identity in eval mode or at p = 0."""
+        p = self.drop.p
+        if not self.training or p == 0.0:
+            return h
+        if rng is None:
+            raise ValueError("train-mode dropout draws its masks from an "
+                             "explicit torch.Generator: pass rng=")
+        keep = torch.rand(h.shape, generator=rng, device=h.device) < 1.0 - p
+        return torch.where(keep, h / (1.0 - p), torch.zeros_like(h))
+
+    def ief(self, xf: torch.Tensor,
+            rng: Optional[torch.Generator] = None) -> HMROutput:
         """The IEF head on pooled features (B, 2048)."""
         B = xf.shape[0]
         dt = self.fc1.weight.dtype
@@ -173,9 +251,9 @@ class HMR(nn.Module):
         cam = mean[NPOSE + 10:NPOSE + 13].expand(B, 3)
         for _ in range(self.n_iter):
             xc = torch.cat([xf, pose.to(dt), shape.to(dt), cam.to(dt)], dim=-1)
-            h = self.drop(torch.relu(self.fc1(xc)))
-            h = self.drop(torch.relu(self.fc2(h)))
-            h32 = h.float()
+            h = self._dropout(torch.relu(self.fc1(xc)), rng)
+            h = self._dropout(torch.relu(self.fc2(h)), rng)
+            h32 = h.to(self.decpose.weight.dtype)
             pose = pose + self.decpose(h32)
             shape = shape + self.decshape(h32)
             cam = cam + self.deccam(h32)
@@ -254,22 +332,27 @@ def create_hmr(
     stem: str = "conv7",
     stage_sizes: Sequence[int] = (3, 4, 6, 3),
     device: DeviceLike = "cuda",
+    remat: bool = False,
 ) -> HMR:
     """Build an HMR module with seeded random weights, on ``device``, in
-    eval mode.  ``stem``: "conv7" or "s2d" (see :class:`ResNet50`)."""
+    eval mode.  ``stem``: "conv7" or "s2d"; ``remat``: see
+    :class:`ResNet50`."""
     dev = resolve(device)
     if mean_params is None:
         mean_params = default_mean_params()
     model = HMR(mean_params, n_iter=n_iter, stage_sizes=stage_sizes,
-                stem=stem)
+                stem=stem, remat=remat)
     init_weights(model, seed)
     return to_compute(model, dtype, dev)
 
 
 def _as_tensor(x) -> torch.Tensor:
+    """float32 on the CPU; float64 numpy leaves stay float64."""
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", torch.float32)
-    return torch.from_numpy(np.array(x, dtype=np.float32))
+    a = np.asarray(x)
+    return torch.from_numpy(np.array(
+        a, dtype=np.float64 if a.dtype == np.float64 else np.float32))
 
 
 def from_flax_variables(variables) -> Dict[str, torch.Tensor]:
@@ -277,8 +360,10 @@ def from_flax_variables(variables) -> Dict[str, torch.Tensor]:
     leaves) -> this package's state_dict: HWIO kernels become OIHW, Dense
     ``(in, out)`` becomes ``(out, in)``, BatchNorm ``scale/bias/mean/var``
     become ``weight/bias/running_mean/running_var``.  Accepts the tree of
-    an ``HMR`` or of a bare ``ResNet50``."""
-    params, stats = variables["params"], variables["batch_stats"]
+    an ``HMR`` or of a bare ``ResNet50``.  Without ``batch_stats`` only
+    the parameters are converted (any tree shaped like ``params``, e.g.
+    an optimizer's moments)."""
+    params, stats = variables["params"], variables.get("batch_stats")
     sd: Dict[str, torch.Tensor] = {}
 
     def conv(dst, kernel):
@@ -287,27 +372,31 @@ def from_flax_variables(variables) -> Dict[str, torch.Tensor]:
     def bn(dst, p, s):
         sd[dst + ".weight"] = _as_tensor(p["scale"])
         sd[dst + ".bias"] = _as_tensor(p["bias"])
-        sd[dst + ".running_mean"] = _as_tensor(s["mean"])
-        sd[dst + ".running_var"] = _as_tensor(s["var"])
-        sd[dst + ".num_batches_tracked"] = torch.tensor(0)
+        if s is not None:
+            sd[dst + ".running_mean"] = _as_tensor(s["mean"])
+            sd[dst + ".running_var"] = _as_tensor(s["var"])
+            sd[dst + ".num_batches_tracked"] = torch.tensor(0)
+
+    def sub(s, key):
+        return None if s is None else s[key]
 
     def resnet(prefix, p, s):
         conv(prefix + "conv1", p["conv1"]["kernel"])
-        bn(prefix + "bn1", p["bn1"], s["bn1"])
+        bn(prefix + "bn1", p["bn1"], sub(s, "bn1"))
         for scope in sorted(k for k in p if k.startswith("layer")):
             stage, block = scope[len("layer"):].split("_")
             dst = f"{prefix}layer{stage}.{block}."
-            bp, bs = p[scope], s[scope]
+            bp, bs = p[scope], sub(s, scope)
             for c in (1, 2, 3):
                 conv(dst + f"conv{c}", bp[f"conv{c}"]["kernel"])
-                bn(dst + f"bn{c}", bp[f"bn{c}"], bs[f"bn{c}"])
+                bn(dst + f"bn{c}", bp[f"bn{c}"], sub(bs, f"bn{c}"))
             if "downsample_conv" in bp:
                 conv(dst + "downsample.0", bp["downsample_conv"]["kernel"])
                 bn(dst + "downsample.1", bp["downsample_bn"],
-                   bs["downsample_bn"])
+                   sub(bs, "downsample_bn"))
 
     if "backbone" in params:
-        resnet("backbone.", params["backbone"], stats["backbone"])
+        resnet("backbone.", params["backbone"], sub(stats, "backbone"))
         for name in HEADS:
             sd[name + ".weight"] = _as_tensor(params[name]["kernel"]).t().contiguous()
             sd[name + ".bias"] = _as_tensor(params[name]["bias"])
