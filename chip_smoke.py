@@ -238,12 +238,50 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                the 24-joint humanoid avatar): the MP4 has 8 frames and
                fused_raster launched once a pass of each block.
 
-It then prints the kernel line (each kernel with the card's name and power
+  24. quant   — int8 HMR serving at full width: hmr_smpl_step(quantize=
+               True) (ResNet-50, 224^2, the 6890-vertex body; PTQ on the 4
+               default calibration images) behind InferenceServer(buckets=
+               (1, 4, 16, 64)), 24 requests, each held to the step applied
+               directly to its batch (1e-5); counters zeroed before the
+               server and read after: fused_lbs must have launched.  The
+               int8 forward on the card against the CPU route (float64
+               products) at batch 4 on the same parameters: at least 99.9%
+               of the int8 codes equal at every conv input, outputs within
+               1e-4.  The int8 outputs against forward_folded on the
+               calibration images: err/scale of pose6d < 0.15 (tpubody's
+               bar), rotations orthonormal within 1e-4.  torch._int_mm's
+               CUDA rules (M > 16; K, N multiples of 8; the operand
+               layouts) checked, and both layouts of the second operand
+               timed.  Frames/s of the int8 and the bf16 step at batch 512
+               in turns (int8, bf16, bf16, int8; bench's timing helper),
+               the int8 step's split by CUDA events (quantize + im2col,
+               products, epilogue, head, LBS) and each step's peak memory;
+  25. mesh    — a single-process mesh of the card listed twice: LBS at
+               F=512 over the 2 shards against unsharded (fused_lbs's
+               bf16x3 gate, 2 launches); the fp32 serving step behind
+               InferenceServer(sharding=) against the step on the whole
+               batch (1e-4); fit_frames(mesh=) on 8 frames at 2 iterations
+               a stage against unsharded (phase 15's whole-fit bars);
+               animate_video(mesh=) on 16 frames at 256^2: fused_raster
+               launched, frames within 1 LSB of the unsharded ones on all
+               but 1e-4 of the values (two unsharded runs differ that way
+               too: the vertex normals' index_add_ atomics);
+  26. multihost — two processes of this script (--multihost-worker) on the
+               card, joined by torch.distributed with gloo at a free
+               localhost port (NCCL admits one rank a GPU), each with a
+               timeout: a frames array gathered in process order and a
+               mean by all_reduce, each checked; animate_video(multihost=
+               True) on the 16-frame clip at 256^2: each rank launches
+               fused_raster, rank 0's MP4 has 16 frames and they agree
+               with the single-process frames under phase 25's bar.
+
+It then prints the whole script's time, the kernel line (each kernel with the card's name and power
 limit), the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.  It needs one CUDA GPU and no network.
 ``--phases a,b`` runs a subset (names: lbs, serve, bench, raster, video,
 oracle, vtiming, zbuffer, reconstruct, rtiming, stage, backbone, fit,
-fitserve, ftiming, rwhole, demo, train, remat, pose2d, asf, and the extra
+fitserve, ftiming, rwhole, demo, train, remat, pose2d, asf, quant, mesh,
+multihost, and the extra
 vprofile: a torch.profiler pass over the video path) and prints no result
 line: a development aid.
 """
@@ -3460,20 +3498,593 @@ def phase_asf(dev, workdir):
                 passes=passes)
 
 
+# -- slice E2: int8 serving and frame-axis distribution ----------------------
+QUANT_BATCH = 512         # the flagship's batch, timed beside the bf16 step
+QUANT_CPU_BATCH = 4       # the int8 forward, card vs the CPU route
+QUANT_CODE_SHARE = 0.999  # int8 codes equal at every conv input, card vs CPU
+QUANT_FIDELITY = 0.15     # tpubody's bar: err / scale of pose6d, int8 vs f32
+ORTHO_ATOL = 1e-4         # rotations of the int8 outputs orthonormal
+QUANT_ITERS = 10          # CUDA-event timing after 3 warm-up steps
+MESH_LBS_FRAMES = 512
+MESH_FIT_N = 8            # frames of the sharded fit, 2 iterations a stage
+MESH_FIT_ITERS = 2
+DIST_FRAMES = 16          # clip of the sharded and the two-process animation
+DIST_SIZE = 256
+DIST_TIMEOUT_S = 300      # each worker process of phase 26
+# Frames of the sharded or two-process animation against the unsharded
+# ones: the card's renderer is not bit-reproducible from run to run (the
+# vertex normals are summed by index_add_, whose float atomics land in
+# another order each run), so two unsharded runs already differ by 1 LSB
+# on about 2e-6 of the values.  Bar: at most 1 LSB, on at most 1e-4.
+DIST_FRAME_LSB = 1
+DIST_FRAME_SHARE = 1e-4
+
+
+def frames_agree(a, b, what):
+    """uint8 frames a and b under the bar above -> (max |d|, share of
+    values that differ)."""
+    if a.shape != b.shape:
+        raise RuntimeError(f"{what}: frames {a.shape} vs {b.shape}")
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    worst, share = int(d.max()), float((d > 0).mean())
+    log(f"  {what}: max |d| {worst} LSB, share of values that differ "
+        f"{share:.3e} (bar {DIST_FRAME_LSB} LSB on {DIST_FRAME_SHARE})")
+    if worst > DIST_FRAME_LSB or share > DIST_FRAME_SHARE:
+        raise RuntimeError(f"{what}: frames disagree")
+    return worst, share
+
+
+class MarkTimer:
+    """Contiguous CUDA-event spans: ``mark(name)`` closes the span since
+    the previous mark (or ``start``) under ``name``; spans of one name add
+    up.  Nothing synchronises until ``ms``."""
+
+    def __init__(self):
+        self.marks = []
+
+    def start(self):
+        import torch
+
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.marks.append((None, e))
+
+    def mark(self, name):
+        import torch
+
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.marks.append((name, e))
+
+    def ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        out = {}
+        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
+            if name is not None:
+                out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+        return out
+
+
+def serve_requests(step, images, buckets, dev, sharding=None):
+    """Every image as one request through InferenceServer(step) from its
+    own thread -> (results, [(batch, outputs)] dispatched after warm-up,
+    launches during the whole run, server stats).  The launch counters are
+    zeroed just before the server is built (its warm-up included) and read
+    after the last result."""
+    from tpubody_torch import native
+    from tpubody_torch.pipelines import serving
+
+    batches = []
+
+    class Recording:
+        """The step, recording each dispatched batch and its outputs (a
+        replica per shard device: ``to``)."""
+
+        def __init__(self, inner):
+            self.inner = inner
+
+        def to(self, device):
+            return Recording(self.inner.to(device))
+
+        def __call__(self, batch):
+            out = self.inner(batch)
+            batches.append((batch.clone(), out))
+            return out
+
+    native.reset_launches()
+    server = serving.InferenceServer(Recording(step), step.image_shape,
+                                     buckets=buckets, device=dev,
+                                     sharding=sharding)
+    batches.clear()       # drop the warm-up batches
+    futures = [None] * len(images)
+
+    def send(i):
+        futures[i] = server.submit(images[i])
+
+    with server:
+        threads = [threading.Thread(target=send, args=(i,))
+                   for i in range(len(images))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        results = [f.result(timeout=300) for f in futures]
+    return results, batches, dict(native.LAUNCHES), server.stats.snapshot()
+
+
+def hold_served(step, images, results, batches, dev):
+    """Each served result against the step applied directly to the batch
+    (or shard) it was dispatched in -> the largest difference."""
+    import torch
+
+    worst = 0.0
+    direct = [step(b) for b, _ in batches]
+    for img, (verts, cam) in zip(images, results):
+        if not (np.isfinite(verts).all() and np.isfinite(cam).all()):
+            raise RuntimeError("non-finite served output")
+        x = torch.as_tensor(img, device=dev)
+        hits = [(k, r) for k, (b, _) in enumerate(batches)
+                for r in range(len(b)) if torch.equal(b[r].to(dev), x)]
+        if not hits:
+            raise RuntimeError("a request's image is in no dispatched batch")
+        k, r = hits[0]
+        worst = max(worst,
+                    float(np.abs(verts - direct[k][0][r].cpu().numpy()).max()),
+                    float(np.abs(cam - direct[k][1][r].cpu().numpy()).max()))
+    return worst
+
+
+def int_mm_rules(dev):
+    """torch._int_mm's CUDA rules as hmr_quant relies on them, and the two
+    layouts of the second operand timed on a layer1 conv2 product at
+    batch 512 (M = 1,605,632, K = 576, N = 64)."""
+    import torch
+
+    def runs(m, k, n, col_major):
+        a = torch.ones(m, k, dtype=torch.int8, device=dev)
+        b = (torch.ones(n, k, dtype=torch.int8, device=dev).t() if col_major
+             else torch.ones(k, n, dtype=torch.int8, device=dev))
+        try:
+            c = torch._int_mm(a, b)
+            torch.cuda.synchronize()
+            return bool((c == k).all())
+        except RuntimeError:
+            return False
+
+    rules = {"M16": runs(16, 64, 64, True), "M17_col": runs(17, 64, 64, True),
+             "M17_row": runs(17, 64, 64, False),
+             "K147": runs(32, 147, 64, True), "K152": runs(32, 152, 64, True)}
+    if rules != {"M16": False, "M17_col": True, "M17_row": False,
+                 "K147": False, "K152": True}:
+        raise RuntimeError(f"torch._int_mm's rules changed: {rules}")
+    M, K, N = QUANT_BATCH * 56 * 56, 576, 64
+    a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device=dev)
+    w = torch.randint(-127, 128, (N, K), dtype=torch.int8, device=dev)
+    ms = {"column_major": time_ms(lambda: torch._int_mm(a, w.t()), 10, 2),
+          "row_major": time_ms(lambda: torch._int_mm(a, w.t().contiguous()),
+                               10, 2)}
+    tops = {k: 2.0 * M * K * N / (v * 1e-3) / 1e12 for k, v in ms.items()}
+    return rules, ms, tops
+
+
+def phase_quant(dev):
+    """int8 HMR serving at full width (hmr_smpl_step(quantize=True))."""
+    import torch
+
+    from tpubody_torch import bench
+    from tpubody_torch.models import hmr as hmr_lib
+    from tpubody_torch.models import hmr_quant as hq
+    from tpubody_torch.models import smpl
+    from tpubody_torch.pipelines import serving
+
+    rules, mm_ms, mm_tops = int_mm_rules(dev)
+    log(f"  torch._int_mm rules {rules}; layer1 conv2 product at batch "
+        f"{QUANT_BATCH}: ms {mm_ms}, int8 TOP/s {mm_tops}")
+
+    # The int8 step through its entry point, and its parameters rebuilt
+    # by hand from the same seeded float32 HMR (the fidelity check needs
+    # the folded tree); both must agree.
+    t0 = time.perf_counter()
+    step = serving.hmr_smpl_step(quantize=True, device=dev)
+    build_s = time.perf_counter() - t0
+    calib = np.random.default_rng(0).normal(
+        scale=0.5, size=(4, 224, 224, 3)).astype(np.float32)
+    folded = hq.fold_batchnorm(hmr_lib.create_hmr(dtype=torch.float32,
+                                                  device=dev))
+    qp = hq.quantize(folded, hq.calibrate(folded, calib))
+    for a, b in zip(hq_convs(qp), hq_convs(step.hmr.qparams)):
+        if not (torch.equal(a.w, b.w) and torch.equal(a.x_scale, b.x_scale)):
+            raise RuntimeError("hmr_smpl_step(quantize=True) quantized "
+                               "other weights than the seeded model's")
+
+    rng = np.random.default_rng(24)
+    images = rng.normal(size=(24, 224, 224, 3)).astype(np.float32)
+    results, batches, launches, snap = serve_requests(
+        step, images, (1, 4, 16, 64), dev)
+    log(f"  served {snap['requests']} requests in {snap['batches']} batches"
+        f" of sizes {[len(b) for b, _ in batches]}: p50 "
+        f"{snap['latency_p50_ms']:.3f} ms, p99 {snap['latency_p99_ms']:.3f}"
+        f" ms; launches {launches}")
+    if launches["fused_lbs"] == 0:
+        raise RuntimeError("fused_lbs was not launched on the int8 path")
+    worst = hold_served(step, images, results, batches, dev)
+    log(f"  served vs direct (same batch): max|d|={worst:.3e}")
+    if worst > SAME_BATCH_ATOL:
+        raise RuntimeError("served int8 results differ from the direct step")
+
+    # The card against the CPU route on the same parameters: the int8
+    # codes at every conv input and the outputs.
+    x = torch.as_tensor(images[:QUANT_CPU_BATCH], device=dev)
+    qp_cpu = hq.QuantizedHMR(qp).to("cpu").qparams
+    codes = {}
+    with torch.inference_mode():
+        xf = hq._backbone_int8(qp, x, observe=lambda n, c: codes.setdefault(
+            n, [c.cpu()]))
+        out = hq._ief_head(qp["head"], xf, hmr_lib.default_mean_params())
+        xf_c = hq._backbone_int8(qp_cpu, x.cpu(),
+                                 observe=lambda n, c: codes[n].append(c))
+        out_c = hq._ief_head(qp_cpu["head"], xf_c,
+                             hmr_lib.default_mean_params())
+    shares = {n: float((a == b).float().mean()) for n, (a, b) in
+              codes.items()}
+    err_cpu = max((getattr(out, f).cpu() - getattr(out_c, f)).abs().max()
+                  .item() for f in ("pose6d", "shape", "cam", "rotmats"))
+    log(f"  int8 card vs CPU route, batch {QUANT_CPU_BATCH}: codes equal at "
+        f"{len(shares)} conv inputs, least share {min(shares.values()):.6f}"
+        f" (bar {QUANT_CODE_SHARE}); outputs max|d|={err_cpu:.3e} (bar "
+        f"{CPU_HMR_ATOL})")
+    if min(shares.values()) < QUANT_CODE_SHARE or err_cpu > CPU_HMR_ATOL:
+        raise RuntimeError("the int8 forward on the card disagrees with "
+                           "the CPU route")
+
+    # Fidelity against the folded float32 network, tpubody's bar.
+    with torch.inference_mode():
+        got = hq.forward(qp, calib)
+        ref = hq.forward_folded(folded, calib)
+    fid = ((got.pose6d - ref.pose6d).abs().max()
+           / (ref.pose6d.abs().max() + 1e-6)).item()
+    R = got.rotmats.reshape(-1, 3, 3).double()
+    ortho = (R @ R.transpose(1, 2) - torch.eye(3, dtype=torch.float64,
+                                               device=dev)).abs().max().item()
+    log(f"  int8 vs forward_folded on the calibration images: err/scale "
+        f"{fid:.4e} (bar {QUANT_FIDELITY}), rotations |RR^T - I| "
+        f"{ortho:.3e} (bar {ORTHO_ATOL})")
+    if not fid < QUANT_FIDELITY or ortho > ORTHO_ATOL:
+        raise RuntimeError("the int8 outputs miss tpubody's fidelity bar")
+
+    # Throughput at the flagship's batch beside the bf16 step, in turns,
+    # with bench's own timing helper; then the int8 step's split.
+    big = torch.as_tensor(np.random.default_rng(0).normal(
+        size=(QUANT_BATCH, 224, 224, 3)).astype(np.float32), device=dev)
+    bf16 = bench.make_step(dev)
+    int8 = serving.HMRSMPLStep(hq.QuantizedHMR(qp), bf16.body, dev, 224)
+    timed = {"int8": [], "bf16": []}
+    peak = {}
+    with torch.inference_mode():
+        for name in ("int8", "bf16", "bf16", "int8"):
+            fn = int8 if name == "int8" else bf16
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            timed[name].append(bench._event_ms(lambda: fn(big), QUANT_ITERS,
+                                               3))
+            peak[name] = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+        split = MarkTimer()
+        for _ in range(5):
+            split.start()
+            xf = hq._backbone_int8(qp, big, mark=split.mark)
+            out = hq._ief_head(qp["head"], xf, hmr_lib.default_mean_params())
+            split.mark("head")
+            smpl.forward_batch_verts(int8.body, out.rotmats, out.shape,
+                                     None, pose_is_rotmat=True)
+            split.mark("lbs")
+    split_ms = {k: v / 5 for k, v in split.ms().items()}
+    ms = {k: min(v) for k, v in timed.items()}
+    res = {
+        "batch": QUANT_BATCH,
+        "int8_ms": ms["int8"], "int8_fps": QUANT_BATCH * 1e3 / ms["int8"],
+        "bf16_ms": ms["bf16"], "bf16_fps": QUANT_BATCH * 1e3 / ms["bf16"],
+        "turns_ms": timed, "int8_split_ms": split_ms,
+        "peak_gb_above_model": peak, "build_s": build_s,
+        "latency_p50_ms": snap["latency_p50_ms"],
+        "latency_p99_ms": snap["latency_p99_ms"],
+        "code_share_min": min(shares.values()), "cpu_err": err_cpu,
+        "fidelity": fid, "int_mm_ms": mm_ms, "int_mm_tops": mm_tops,
+        "launches": launches, "card": card_line()}
+    log(f"  int8 step {ms['int8']:.3f} ms = {res['int8_fps']:.1f} frames/s;"
+        f" bf16 step {ms['bf16']:.3f} ms = {res['bf16_fps']:.1f} frames/s "
+        f"(batch {QUANT_BATCH}, in turns {timed}); int8 split ms {split_ms};"
+        f" peak GB above the inputs {peak}")
+    return res
+
+
+def hq_convs(qparams):
+    yield qparams["stem"]
+    for stage in qparams["blocks"]:
+        for blk in stage:
+            yield from blk.values()
+
+
+def dist_avatar_and_clip(workdir):
+    """The phase 7 avatar and the first DIST_FRAMES frames of its clip ->
+    (avatar, clip, avatar_path, clip_path) (the files for the workers)."""
+    from tpubody_torch.io import motion
+
+    avatar, avatar_path, clip_path = make_avatar_and_clip(workdir)
+    clip = motion.read_amass(clip_path)
+    clip = motion.MotionClip(clip.poses[:DIST_FRAMES],
+                             clip.trans[:DIST_FRAMES], clip.fps)
+    return avatar, clip, avatar_path, clip_path
+
+
+def dist_render_kwargs():
+    """The sharded and the two-process animation: 256^2 framing the
+    humanoid as phase 23 does, full RGB frames to the writer."""
+    return dict(size=DIST_SIZE, cam_t=np.array([0.0, 0.0, ASF_CAM_Z]),
+                crop_transfer=False, i420_transfer=False)
+
+
+def recorded_frames(fn):
+    """Run fn with the MP4 writer recording -> the uint8 frames written
+    (an empty array where it wrote none)."""
+    from tpubody_torch.render import video
+
+    frames = []
+    write = video.VideoWriter.write
+
+    def recording(self, frame):
+        frames.append(video.quantize_u8(np.asarray(frame)).copy())
+        write(self, frame)
+
+    video.VideoWriter.write = recording
+    try:
+        fn()
+    finally:
+        video.VideoWriter.write = write
+    return np.asarray(frames)
+
+
+def phase_mesh(dev, workdir):
+    """A single-process mesh of the card listed twice."""
+    import torch
+
+    from tpubody_torch import bench, native
+    from tpubody_torch.dist import mesh as mesh_lib
+    from tpubody_torch.fit import smplify
+    from tpubody_torch.fit import vposer as vposer_lib
+    from tpubody_torch.models import humanoid, smpl
+    from tpubody_torch.pipelines import animate, serving
+
+    mesh = mesh_lib.make_mesh(devices=[dev, dev])
+    launches = dict.fromkeys(native.LAUNCHES, 0)
+
+    def count(fn):
+        native.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in native.LAUNCHES.items():
+            launches[k] += v
+        return out, dict(native.LAUNCHES)
+
+    # LBS at F=512, sharded against unsharded, fused_lbs's gate.
+    body = humanoid.humanoid(n_joints=24, n_verts=6890, device=dev)
+    rng = np.random.default_rng(25)
+    _, _, _, _, (poses, beta) = lbs_inputs(body, MESH_LBS_FRAMES, rng, True,
+                                           True, False)
+    whole = smpl.forward_batch_verts(body, poses, beta, pose_is_rotmat=True)
+
+    def sharded_lbs():
+        bodies = mesh_lib.replicate(body, mesh)
+        p, b = mesh_lib.shard_frames((poses, beta), mesh)
+        outs = []
+        for m, d, ps, bs in zip(bodies, mesh.devices, p.shards, b.shards):
+            with mesh_lib.on_device(d):
+                outs.append(smpl.forward_batch_verts(m, ps, bs,
+                                                     pose_is_rotmat=True))
+        return torch.cat(outs)
+
+    got, lbs_launches = count(sharded_lbs)
+    rel = ((got - whole).abs().max() / whole.abs().max()).item()
+    log(f"  LBS F={MESH_LBS_FRAMES} over 2 shards vs unsharded: rel "
+        f"{rel:.3e} (fused_lbs's bf16x3 gate 1e-4); launches {lbs_launches}")
+    if rel >= 1e-4 or lbs_launches["fused_lbs"] != 2:
+        raise RuntimeError("sharded LBS disagrees with unsharded")
+
+    # The f32 serving step behind a sharded server.
+    step32 = serving.hmr_smpl_step(dtype=torch.float32, device=dev)
+    images = np.random.default_rng(26).normal(
+        size=(8, 224, 224, 3)).astype(np.float32)
+    results, batches, served, snap = serve_requests(
+        step32, images, (2, 8), dev, mesh_lib.frames_sharding(mesh))
+    for k, v in served.items():
+        launches[k] += v
+    with torch.inference_mode():
+        v_all, c_all = step32(images)
+    err = max(max(float(np.abs(v - v_all[i].cpu().numpy()).max()),
+                  float(np.abs(c - c_all[i].cpu().numpy()).max()))
+              for i, (v, c) in enumerate(results))
+    log(f"  f32 step behind InferenceServer(sharding) vs unsharded: "
+        f"max|d|={err:.3e} (bar {CPU_HMR_ATOL}); batches "
+        f"{[len(b) for b, _ in batches]} (shards); launches {served}")
+    if err > CPU_HMR_ATOL or served["fused_lbs"] == 0:
+        raise RuntimeError("the sharded server disagrees with unsharded")
+
+    # fit_frames over the mesh against unsharded.
+    model = bench.fit_model(6890, seed=0, device=dev)
+    decoder = vposer_lib.create_decoder(0, device=dev)
+    truth = bench.fit_truth(model, decoder, MESH_FIT_N, seed=12)
+    kps = bench.fit_keypoints(bench.project_fit(model, **truth), seed=12)
+    center = np.full(2, bench.FIT_SIZE / 2.0, np.float32)
+    cfg = smplify.FitConfig(maxiters=MESH_FIT_ITERS)
+    t0 = time.perf_counter()
+    plain = smplify.fit_frames(model, kps, center, cfg, dec_params=decoder,
+                               device=dev)
+    t1 = time.perf_counter()
+    sharded, fit_launches = count(lambda: smplify.fit_frames(
+        model, kps, center, cfg, dec_params=decoder, mesh=mesh, device=dev))
+    t2 = time.perf_counter()
+    d = hold_fits(sharded, plain, f"fit_frames over 2 shards vs unsharded, "
+                  f"{MESH_FIT_N} frames at {MESH_FIT_ITERS} iterations")
+    log(f"  fit {t1 - t0:.3f} s unsharded, {t2 - t1:.3f} s sharded")
+
+    # animate_video over the mesh against unsharded.
+    avatar, clip, _, _ = dist_avatar_and_clip(workdir)
+    kw = dist_render_kwargs()
+    plain = [recorded_frames(lambda: animate.animate_video(
+        avatar, clip, os.path.join(workdir, "plain.mp4"), device=dev, **kw))
+        for _ in range(2)]
+    mesh_frames, anim_launches = count(lambda: recorded_frames(
+        lambda: animate.animate_video(
+            avatar, clip, os.path.join(workdir, "mesh.mp4"), mesh=mesh,
+            device=dev, **kw)))
+    log(f"  animate_video(mesh): {mesh_frames.shape[0]} frames, launches "
+        f"{anim_launches}")
+    again = frames_agree(plain[1], plain[0], "unsharded run vs unsharded")
+    agree = frames_agree(mesh_frames, plain[0],
+                         "animate_video(mesh) vs unsharded")
+    if (mesh_frames.shape[0] != DIST_FRAMES
+            or anim_launches["fused_raster"] == 0):
+        raise RuntimeError("animate_video over the mesh failed its gates")
+    return dict(lbs_rel=rel, serve_err=err, fit=d, frames=agree,
+                frames_run_to_run=again, launches=launches,
+                card=card_line())
+
+
+def phase_multihost(dev, workdir):
+    """Two gloo processes on the one card (NCCL admits one rank a GPU)."""
+    import socket
+
+    from tpubody_torch.pipelines import animate
+
+    avatar, clip, _, _ = dist_avatar_and_clip(workdir)
+    single = recorded_frames(lambda: animate.animate_video(
+        avatar, clip, os.path.join(workdir, "single.mp4"), device=dev,
+        **dist_render_kwargs()))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost-worker",
+         str(rank), "2", str(port), workdir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for rank in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=DIST_TIMEOUT_S)
+            logs.append(out.decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, text in enumerate(logs):
+        for line in text.strip().splitlines()[-6:]:
+            log(f"  [rank {rank}] {line}")
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError(f"a multihost worker failed: "
+                           f"{[p.returncode for p in procs]}")
+    info = [json.load(open(os.path.join(workdir, f"mh_{r}.json")))
+            for r in range(2)]
+    frames = np.load(os.path.join(workdir, "mh_frames_0.npy"))
+    import cv2
+    cap = cv2.VideoCapture(os.path.join(workdir, "mh.mp4"))
+    in_mp4 = 0
+    while cap.read()[0]:
+        in_mp4 += 1
+    cap.release()
+    log(f"  2 processes: slices {[i['slice'] for i in info]}, gather ok "
+        f"{[i['gather_ok'] for i in info]}, mean ok "
+        f"{[i['mean_ok'] for i in info]}; launches "
+        f"{[i['launches'] for i in info]}; rank 0 wrote {frames.shape[0]} "
+        f"frames ({in_mp4} in the MP4)")
+    agree = frames_agree(frames, single, "rank 0's frames vs one process")
+    if (not all(i["gather_ok"] and i["mean_ok"] for i in info)
+            or any(i["launches"]["fused_raster"] == 0 for i in info)
+            or in_mp4 != DIST_FRAMES
+            or [i["slice"] for i in info] != [[0, 8], [8, 16]]):
+        raise RuntimeError("the two-process run failed its gates")
+    launches = {k: sum(i["launches"][k] for i in info)
+                for k in info[0]["launches"]}
+    return dict(launches=launches, per_rank=[i["launches"] for i in info],
+                frames=agree, wall_s=[i["wall_s"] for i in info],
+                card=card_line())
+
+
+def multihost_worker(rank, world, port, workdir) -> int:
+    """One rank of phase 26: gloo on the shared card."""
+    import torch
+    import torch.distributed as dist
+
+    from tpubody_torch import native
+    from tpubody_torch.dist import multihost
+    from tpubody_torch.io import motion
+    from tpubody_torch.mesh import rigging
+    from tpubody_torch.pipelines import animate
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    multihost.initialize(f"localhost:{port}", world, rank, backend="gloo",
+                         timeout_s=120.0)
+    mesh = multihost.global_mesh(device=dev)
+    full = np.arange(24 * 5 * 3, dtype=np.float32).reshape(24, 5, 3)
+    start, stop = multihost.process_frame_slice(24)
+    garr = multihost.global_frames_array(full[start:stop], mesh)
+    local = garr.gather()
+    total = local.sum(dtype=torch.float64).cpu()
+    dist.all_reduce(total)
+    gathered = multihost.gather_frames_to_host(local * 2.0 + 1.0)
+    gather_ok = bool(np.array_equal(gathered, full * 2.0 + 1.0))
+    mean_ok = abs(float(total) / full.size - float(full.mean())) < 1e-9
+
+    avatar = rigging.load_avatar(os.path.join(workdir, "avatar.pkl"))
+    clip = motion.read_amass(os.path.join(workdir, "clip.npz"))
+    clip = motion.MotionClip(clip.poses[:DIST_FRAMES],
+                             clip.trans[:DIST_FRAMES], clip.fps)
+    native.reset_launches()
+    t0 = time.perf_counter()
+    frames = recorded_frames(lambda: animate.animate_video(
+        avatar, clip, os.path.join(workdir, "mh.mp4"), multihost=True,
+        device=dev, **dist_render_kwargs()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rank == 0:
+        np.save(os.path.join(workdir, "mh_frames_0.npy"), frames)
+    elif len(frames):
+        raise RuntimeError("a rank other than 0 wrote frames")
+    s, e = multihost.process_frame_slice(DIST_FRAMES)
+    with open(os.path.join(workdir, f"mh_{rank}.json"), "w") as f:
+        json.dump(dict(slice=[s, e], gather_ok=gather_ok, mean_ok=mean_ok,
+                       launches=dict(native.LAUNCHES), wall_s=wall), f)
+    dist.destroy_process_group()
+    print(f"rank {rank}: gather {gather_ok}, mean {mean_ok}, launches "
+          f"{dict(native.LAUNCHES)}, {wall:.3f} s", flush=True)
+    return 0
+
+
 ALL_PHASES = ("lbs", "serve", "bench", "raster", "video", "oracle", "vtiming",
               "zbuffer", "reconstruct", "rtiming", "stage", "backbone",
               "fit", "fitserve", "ftiming", "rwhole", "demo", "train",
-              "remat", "pose2d", "asf")
+              "remat", "pose2d", "asf", "quant", "mesh", "multihost")
 EXTRA_PHASES = ("vprofile",)
 
 
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma-separated subset of " + ",".join(ALL_PHASES))
+    ap.add_argument("--multihost-worker", nargs=4, default=None,
+                    metavar=("RANK", "WORLD", "PORT", "DIR"),
+                    help=argparse.SUPPRESS)   # one process of phase 26
     args = ap.parse_args()
+    if args.multihost_worker:
+        rank, world, port, workdir = args.multihost_worker
+        return multihost_worker(int(rank), int(world), int(port), workdir)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(ALL_PHASES) - set(EXTRA_PHASES)
     if unknown:
@@ -3642,6 +4253,33 @@ def main() -> int:
         finally:
             shutil.rmtree(train_dir, ignore_errors=True)
 
+    if "quant" in phases:
+        log(f"phase 24: int8 HMR serving (hmr_smpl_step(quantize=True)), "
+            f"batch {QUANT_BATCH}")
+        quant = phase_quant(dev)
+        log(json.dumps({"quant": quant}))
+        for k in kernels:
+            k["launches_quant"] = quant["launches"][k["name"]]
+    if set(phases) & {"mesh", "multihost"}:
+        dist_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+        try:
+            if "mesh" in phases:
+                log("phase 25: a mesh of the card listed twice")
+                mesh_res = phase_mesh(dev, dist_dir)
+                log(json.dumps({"mesh": mesh_res}))
+                for k in kernels:
+                    k["launches_mesh"] = mesh_res["launches"][k["name"]]
+            if "multihost" in phases:
+                log("phase 26: two gloo processes on the card")
+                mh = phase_multihost(dev, dist_dir)
+                log(json.dumps({"multihost": mh}))
+                for k in kernels:
+                    k["launches_multihost"] = mh["launches"][k["name"]]
+        finally:
+            shutil.rmtree(dist_dir, ignore_errors=True)
+
+    log(f"chip_smoke: the whole script took "
+        f"{time.perf_counter() - t_start:.1f} s")
     smi = card_line()
     if not full:
         log(f"phases {phases} passed on {smi} (subset: no result line)")

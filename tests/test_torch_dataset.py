@@ -130,7 +130,7 @@ def test_loader_drop_last_len_and_batch_size_error():
         tds.DeviceLoader(data, batch_size=32, num_epochs=None, device="cpu")
     with pytest.raises(ValueError, match="positive"):
         tds.DeviceLoader(data, batch_size=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="E2"):
+    with pytest.raises(TypeError, match="frames_sharding"):
         tds.DeviceLoader(data, batch_size=2, sharding=object(), device="cpu")
 
 

@@ -93,13 +93,3 @@ def test_entry_points_default_to_the_card():
         ts.fit_frame(tm, kps[0], common.CENTER)
     with pytest.raises(RuntimeError, match="cuda"):
         ts.fit_sequence(tm, kps, common.CENTER)
-
-
-def test_mesh_sharding_is_not_ported():
-    _, tm = common.models()
-    kps = np.zeros((1, 67, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="slice E"):
-        ts.fit_frames(tm, kps, common.CENTER, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice E"):
-        ts.fit_sequence(tm, kps, common.CENTER, mesh=object(),
-                        device="cpu")

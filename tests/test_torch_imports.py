@@ -25,6 +25,8 @@ MODULES = [
     "tpubody_torch.core.lbs",
     "tpubody_torch.core.rotations",
     "tpubody_torch.core.skeleton",
+    "tpubody_torch.dist.mesh",
+    "tpubody_torch.dist.multihost",
     "tpubody_torch.fit.collision",
     "tpubody_torch.fit.joints",
     "tpubody_torch.fit.keypoints",
@@ -55,6 +57,7 @@ MODULES = [
     "tpubody_torch.mesh.stitch",
     "tpubody_torch.models.fused_resnet",
     "tpubody_torch.models.hmr",
+    "tpubody_torch.models.hmr_quant",
     "tpubody_torch.models.hmr_train",
     "tpubody_torch.models.humanoid",
     "tpubody_torch.models.params",

@@ -97,9 +97,7 @@ def test_predictor_loads_reference_checkpoint(tmp_path):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError):
-        serving.hmr_smpl_step(quantize=True, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="frames_sharding"):
         serving.InferenceServer(double_step, image_shape=SHAPE, buckets=(1,),
                                 sharding=object(), device="cpu")
     if not torch.cuda.is_available():

@@ -11,9 +11,6 @@ and ``gen-smplh-batch``, ``refine``, ``fit-video``, ``export-glb``,
 ``infer``, ``animate-batch``, ``train-pose2d`` and ``detect-pose``.  Every
 command runs on the card unless ``--device cpu`` is given before the
 command's name.  Checkpoints are single files (``utils/checkpoint.py``).
-
-Not here yet (its module belongs to the last slice of the port):
-``--shard`` of ``gen-smplh-batch``.
 """
 from __future__ import annotations
 
@@ -52,7 +49,15 @@ def _cmd_gen_smplh_batch(args) -> int:
     if not items:
         print("no valid fixture dirs", file=sys.stderr)
         return 1
-    gen_smplh.gen_smplh_batch(items, config_yaml=args.config,
+    mesh = None
+    if args.shard and len(items) > 1:
+        import torch
+
+        from tpubody_torch.dist import mesh as mesh_lib
+        if (torch.device(args.device).type == "cuda"
+                and torch.cuda.device_count() > 1):
+            mesh = mesh_lib.make_mesh()
+    gen_smplh.gen_smplh_batch(items, config_yaml=args.config, mesh=mesh,
                               device=args.device)
     for _, _, out in items:
         print(f"wrote {os.path.join(out, 'smplh.pkl')}")
@@ -471,6 +476,8 @@ def main(argv=None) -> int:
     p.add_argument("--out-root", default=None,
                    help="write outputs under this root instead of in-place")
     p.add_argument("--config", default=None, help="YAML config overrides")
+    p.add_argument("--shard", action="store_true",
+                   help="shard the frame axis over all CUDA devices")
     p.set_defaults(fn=_cmd_gen_smplh_batch)
 
     p = sub.add_parser("reconstruct", help="full single-image reconstruction")

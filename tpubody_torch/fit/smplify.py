@@ -29,6 +29,7 @@ the tests pass ``device="cpu"``.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import os
@@ -633,13 +634,6 @@ def _as_decoder(dec_params, seed: int, device) -> vposer_lib.VPoserDecoder:
     return dec
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: frame-axis sharding of the fit over devices is part of "
-            "the distribution slice (slice E) of the port")
-
-
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
@@ -651,7 +645,13 @@ class BatchFitter:
     lanes (both orientation candidates of every frame; the flip is
     selected per frame where try_both_orient or the side-view shoulder
     test allows it).  There is no compile step, so unlike ``tpubody``'s
-    it pads no batch to a bucket size.
+    it pads no batch to a bucket size, except under ``mesh=``
+    (``dist.mesh``): there, as in ``tpubody``, the frames pad to the next
+    power of two and then to a multiple of the mesh size, each device
+    fits its share of the lanes on its own replica of the fitter
+    (:meth:`replica`; the shards run one after another, each fit being
+    host-paced), and the padding is cut off.  The bucket keeps the lane
+    counts, and so each replica's CUDA graphs, few.
 
     ``stats`` after a call holds the camera stage's and the body stages'
     counters (iterations, objective evaluations, line-search steps,
@@ -708,6 +708,42 @@ class BatchFitter:
         self._bufs: Dict[Any, Dict[str, torch.Tensor]] = {}
         self._zeros: Dict[int, Dict[str, torch.Tensor]] = {}
         self._graphs: Dict[Any, Any] = {}
+        self._replicas: Dict[torch.device, "BatchFitter"] = {}
+
+    def replica(self, device: DeviceLike) -> "BatchFitter":
+        """This fitter on ``device`` (itself on its own device), made once:
+        the same model, configuration and decoder weights."""
+        from tpubody_torch.dist import mesh as mesh_lib
+
+        dev = mesh_lib.canonical(resolve(device))
+        if dev == mesh_lib.canonical(self.device):
+            return self
+        if dev not in self._replicas:
+            self._replicas[dev] = BatchFitter(
+                self.model, self.config,
+                dec_params=copy.deepcopy(self.decoder), device=dev)
+        return self._replicas[dev]
+
+    def _fit_sharded(self, inputs, cam_iters, stage_iters, mesh):
+        """``_fit``'s eight (N, ...) inputs over the devices of ``mesh``
+        (class docstring) -> its output dict on this fitter's device."""
+        from tpubody_torch.dist import mesh as mesh_lib
+
+        N = inputs[0].shape[0]
+        B = 1 << max(N - 1, 0).bit_length()
+        if B != N:                     # the bucket repeats the first frame
+            inputs = [torch.cat([x, x[:1].expand(B - N, *x.shape[1:])])
+                      for x in inputs]
+        pieces = [mesh_lib.split_frames(mesh_lib.pad_frames(x, mesh.size),
+                                        mesh.size) for x in inputs]
+        outs = []
+        for i, dev in enumerate(mesh.devices):
+            with mesh_lib.on_device(dev):
+                outs.append(self.replica(dev)._fit(
+                    *[p[i].to(dev) for p in pieces], cam_iters,
+                    stage_iters))
+        return {k: torch.cat([o[k].to(self.device) for o in outs])[:N]
+                for k in outs[0]}
 
     # -- the fit of a batch of lanes ------------------------------------
     def _zeros_p(self, B):
@@ -917,10 +953,11 @@ class BatchFitter:
 
     def apply(self, kps, centers, init_t=None, has_init=None,
               betas0=None, pose0=None, orient0=None, anchor_w=None,
-              cam_maxiters=None, stage_maxiters=None):
+              cam_maxiters=None, stage_maxiters=None, mesh=None):
         """Tensor entry: batched (N, ...) tensors in -> dict of (N, ...)
         tensors on the device ({"pose", "shape", "cam_t", "emb", "loss",
-        "expression"}); the serving step calls it."""
+        "expression"}); the serving step calls it.  ``mesh``: see the
+        class docstring."""
         dev = self.device
 
         def on(x, shape, dtype=torch.float32):
@@ -930,12 +967,14 @@ class BatchFitter:
 
         kps = on(kps, None)
         B = kps.shape[0]
+        inputs = [kps, on(centers, None), on(init_t, (B, 3)),
+                  on(has_init, (B,), torch.bool), on(betas0, (B, 10)),
+                  on(pose0, (B, self.pose_dim)), on(orient0, (B, 3)),
+                  on(anchor_w, (B,))]
         cam_it, stage_it = self._budgets(cam_maxiters, stage_maxiters)
-        return self._fit(
-            kps, on(centers, None),
-            on(init_t, (B, 3)), on(has_init, (B,), torch.bool),
-            on(betas0, (B, 10)), on(pose0, (B, self.pose_dim)),
-            on(orient0, (B, 3)), on(anchor_w, (B,)), cam_it, stage_it)
+        if mesh is not None:
+            return self._fit_sharded(inputs, cam_it, stage_it, mesh)
+        return self._fit(*inputs, cam_it, stage_it)
 
     def __call__(self,
                  keypoints: np.ndarray,          # (N, 67, 3)
@@ -946,7 +985,6 @@ class BatchFitter:
                  cam_maxiters: Optional[int] = None,
                  stage_maxiters=None,            # scalar or (n_stages,)
                  mesh=None) -> FitBatchOutput:
-        _check_mesh(mesh)
         kps = np.asarray(keypoints, np.float32)
         N = kps.shape[0]
         centers_np = np.broadcast_to(
@@ -971,7 +1009,8 @@ class BatchFitter:
         dev = self.device
         t = [torch.as_tensor(x, device=dev) for x in inputs]
         cam_it, stage_it = self._budgets(cam_maxiters, stage_maxiters)
-        out = self._fit(*t, cam_it, stage_it)
+        out = (self._fit(*t, cam_it, stage_it) if mesh is None
+               else self._fit_sharded(t, cam_it, stage_it, mesh))
         out = {k: _np(v) for k, v in out.items()}
         return FitBatchOutput(
             pose=out["pose"], shape=out["shape"],
@@ -1055,13 +1094,12 @@ def fit_frames(
 ) -> FitBatchOutput:
     """Batched SMPLify: fit N frames as lanes of one :class:`BatchFitter`
     call (both orientation candidates of every frame evaluated, the flip
-    selected per frame).  ``mesh=`` (sharding over devices) is not
-    ported."""
-    _check_mesh(mesh)
+    selected per frame).  ``mesh=`` (``dist.mesh``) shards the frames over
+    devices (:class:`BatchFitter`)."""
     fitter = BatchFitter(model, config, dec_params=dec_params, seed=seed,
                          device=device)
     return fitter(keypoints, camera_centers, init_cam_t=init_cam_t,
-                  init_params=init_params)
+                  init_params=init_params, mesh=mesh)
 
 
 def trim_frames(out: FitBatchOutput, n: int) -> FitBatchOutput:
@@ -1091,8 +1129,9 @@ def fit_sequence(
     solution; warm-started blocks run the truncated budgets
     ``warm_maxiters`` / ``warm_cam_maxiters``.  A short tail block is
     padded with copies of its last frame and trimmed by field.
-    ``chained=False``: all frames fit independently in one batch."""
-    _check_mesh(mesh)
+    ``chained=False``: all frames fit independently in one batch, sharded
+    over ``mesh`` when one is given (the chained fit does not use it, as
+    in ``tpubody``)."""
     kps = np.asarray(keypoints_seq, np.float32)
     T = kps.shape[0]
     centers = np.broadcast_to(
@@ -1100,7 +1139,7 @@ def fit_sequence(
     fitter = BatchFitter(model, config, dec_params=dec_params, seed=seed,
                          device=device)
     if not chained:
-        return fitter(kps, centers)
+        return fitter(kps, centers, mesh=mesh)
     pose_key = fitter.pose_key
     step = max(1, int(block))
     outs = []

@@ -143,8 +143,10 @@ class DeviceLoader:
     while work queued there still reads it.  Up to ``prefetch`` batches
     sit ready in a bounded queue: host work for batch N+1 overlaps device
     work for batch N.  ``device`` defaults to the card; a batch is never
-    left on the host in its place.  ``sharding`` (a multi-card layout)
-    is not ported yet.
+    left on the host in its place.  ``sharding``
+    (``dist.mesh.frames_sharding(mesh)``, in place of ``device``): each
+    batch arrives already split into per-device shards, a TrainBatch of
+    ``dist.mesh.Sharded`` (the batch size must divide by the mesh size).
     """
 
     _DONE = object()
@@ -163,12 +165,18 @@ class DeviceLoader:
         num_epochs: Optional[int] = 1,
         device: DeviceLike = "cuda",
     ):
-        if sharding is not None:
-            raise NotImplementedError(
-                "DeviceLoader(sharding=) belongs to slice E2 of the port "
-                "(dist/*, with torch.distributed); pass sharding=None")
         if batch_size <= 0:
             raise ValueError("batch_size must be positive")
+        if sharding is not None:
+            from tpubody_torch.dist import mesh as mesh_lib
+
+            if not isinstance(sharding, mesh_lib.FramesSharding):
+                raise TypeError("sharding must be dist.mesh.frames_sharding"
+                                f"(mesh), not {type(sharding).__name__}")
+            if batch_size % sharding.mesh.size:
+                raise ValueError(
+                    f"batch_size={batch_size} not divisible by mesh size "
+                    f"{sharding.mesh.size}")
         if drop_last and len(dataset) < batch_size:
             # Every epoch would yield zero batches; with num_epochs=None the
             # worker would spin forever while the consumer blocks on an
@@ -185,7 +193,9 @@ class DeviceLoader:
         self.transforms = list(transforms)
         self.prefetch = max(1, prefetch)
         self.num_epochs = num_epochs
-        self.device = resolve(device)
+        self.sharding = sharding
+        self.device = (sharding.mesh.devices[0] if sharding is not None
+                       else resolve(device))
 
     def __len__(self) -> int:
         n = len(self.dataset) // self.batch_size
@@ -217,18 +227,40 @@ class DeviceLoader:
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         err: List[BaseException] = []
         stop = threading.Event()
-        cuda = self.device.type == "cuda"
-        side = torch.cuda.Stream(self.device) if cuda else None
+        if self.sharding is None:
+            devices = [self.device]
+        else:
+            from tpubody_torch.dist import mesh as mesh_lib
+
+            devices = list(self.sharding.mesh.devices)
+        sides = {d: torch.cuda.Stream(d) for d in devices
+                 if d.type == "cuda"}
+
+        def put(host: TrainBatch, device):
+            """-> (batch on ``device``, its copy's event or None)."""
+            if device.type != "cuda":
+                return host.to(device), None
+            pinned = TrainBatch(*[x.pin_memory() for x in host])
+            with torch.cuda.stream(sides[device]):
+                dev = pinned.to(device, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(sides[device])
+            return dev, ready
 
         def to_device(host_batch: TrainBatch):
-            if not cuda:
-                return host_batch.to(self.device), None
-            pinned = TrainBatch(*[x.pin_memory() for x in host_batch])
-            with torch.cuda.stream(side):
-                dev = pinned.to(self.device, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record(side)
-            return dev, ready
+            """-> (batch, [(tensors, device, event or None)] to wait on)."""
+            if self.sharding is None:
+                dev, ready = put(host_batch, self.device)
+                return dev, [(dev, self.device, ready)]
+            pieces = [mesh_lib.split_frames(x, len(devices))
+                      for x in host_batch]
+            shards = [put(TrainBatch(*[p[i] for p in pieces]), d)
+                      for i, d in enumerate(devices)]
+            batch = TrainBatch(*[
+                mesh_lib.Sharded([s[0][f] for s in shards],
+                                 self.sharding.mesh)
+                for f in range(len(host_batch))])
+            return batch, [(s[0], d, s[1]) for s, d in zip(shards, devices)]
 
         def work():
             try:
@@ -268,12 +300,13 @@ class DeviceLoader:
                 item = q.get()
                 if item is self._DONE:
                     break
-                batch, ready = item
-                if ready is not None:
-                    stream = torch.cuda.current_stream(self.device)
-                    stream.wait_event(ready)
-                    for x in batch:
-                        x.record_stream(stream)
+                batch, copies = item
+                for tensors, device, ready in copies:
+                    if ready is not None:
+                        stream = torch.cuda.current_stream(device)
+                        stream.wait_event(ready)
+                        for x in tensors:
+                            x.record_stream(stream)
                 yield batch
             t.join()
             if err:

@@ -13,9 +13,12 @@ lib/model2video_miaxmo.py:485-599):
     before block k is copied, on a side stream, into pinned host memory;
     the mux (cv2) runs on its own thread and waits on the copy's event.
 
-Frame-axis sharding over several devices (``mesh=``) and the
-process-parallel form (``multihost=True``) belong to the distribution
-slice (slice E) and raise ``NotImplementedError`` here.
+  * ``mesh=`` (``dist.mesh``) shards the skinned frames over the mesh's
+    devices; each shard's blocks render on its device, in frame order,
+  * ``multihost=True`` in a ``torch.distributed`` run
+    (``dist.multihost.initialize``): each process skins and renders its
+    ``process_frame_slice`` of the clip, the rendered frames gather to
+    every process in process order, and process 0 muxes the MP4.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from tpubody_torch.device import DeviceLike, resolve
+from tpubody_torch.dist import mesh as mesh_lib
 from tpubody_torch.io import motion as motion_lib
 from tpubody_torch.mesh import rigging
 from tpubody_torch.render import tiled_raster as TR
@@ -54,15 +58,12 @@ def animate_video(
     shading: str = "gouraud",
     device: DeviceLike = "cuda",
 ) -> str:
-    """Render the avatar driven by the clip into an MP4 at ``out_path``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "animate_video(mesh=...): frame-axis sharding over devices is "
-            "part of the distribution slice (slice E) of the port")
-    if multihost:
-        raise NotImplementedError(
-            "animate_video(multihost=True): the process-parallel form is "
-            "part of the distribution slice (slice E) of the port")
+    """Render the avatar driven by the clip into an MP4 at ``out_path``.
+
+    ``mesh``: shard the frames over its devices (module docstring).
+    ``multihost=True`` at a world size above 1: each process renders its
+    frame slice on ``device`` and process 0 writes the MP4; every process
+    returns ``out_path``.  At world size 1 it is the ordinary path."""
     dev = resolve(device)
     if lod:
         # Rendering LOD: vertex-cluster decimation trades triangle
@@ -73,6 +74,14 @@ def animate_video(
     poses = clip.poses[::stride]
     trans = clip.trans[::stride]
     F = poses.shape[0]
+    if multihost:
+        from tpubody_torch.dist import multihost as mh
+
+        if mh.process_count() > 1:
+            return _animate_video_multihost(
+                avatar, poses, trans, out_path, background, cam_t, size,
+                focal, fps or (clip.fps / stride), chunk, window, shading,
+                dev)
     # All-frame skinning in one pass.
     verts_all = rigging.animate(avatar, poses, trans, device=dev)
 
@@ -104,9 +113,28 @@ def animate_video(
     # An active crop window always wins (even over i420_transfer=True).
     if i420_transfer is None:
         i420_transfer = crop is None
-    render_block, chunk, i420 = _block_renderer(
-        avatar, background, cam_t, size, focal, window, chunk,
-        i420=(crop is None and i420_transfer), shading=shading, device=dev)
+    renderers = {}
+    for d in [dev] if mesh is None else mesh.distinct():
+        renderers[d], block_len, i420 = _block_renderer(
+            avatar, background, cam_t, size, focal, window, chunk,
+            i420=(crop is None and i420_transfer), shading=shading,
+            device=d)
+    chunk = block_len
+
+    def blocks():
+        """(device, frames) of each block, in frame order: on ``dev``, or
+        each shard's on its device (the padding shards cut off)."""
+        if mesh is None:
+            for s in range(0, F, chunk):
+                yield dev, verts_all[s:s + chunk]
+            return
+        sharded = mesh_lib.shard_frames(
+            mesh_lib.pad_frames(verts_all, mesh.size), mesh)
+        per = sharded.shards[0].shape[0]
+        for i, (d, shard) in enumerate(zip(mesh.devices, sharded.shards)):
+            n_real = min(per, F - i * per)
+            for s in range(0, n_real, chunk):
+                yield d, shard[s:min(s + chunk, n_real)]
 
     canvas = None
     if crop is not None:
@@ -114,8 +142,7 @@ def animate_video(
             else np.ones((size, size, 3), np.float32)
         canvas = video_lib.quantize_u8(np.asarray(bg, np.float32))
 
-    on_card = dev.type == "cuda"
-    copy_stream = torch.cuda.Stream(dev) if on_card else None
+    copy_streams = {}
 
     def pull(frames):
         """Slice the body window on the device (when cropping) and start
@@ -129,11 +156,15 @@ def animate_video(
                 frames = frames[:, :, y0:y1, x0:x1]
             else:
                 frames = frames[:, y0:y1, x0:x1, :]
-        if not on_card:
+        fdev = frames.device
+        if fdev.type != "cuda":
             return frames, None
         frames = frames.contiguous()
+        if fdev not in copy_streams:
+            copy_streams[fdev] = torch.cuda.Stream(fdev)
+        copy_stream = copy_streams[fdev]
         rendered = torch.cuda.Event()
-        rendered.record(torch.cuda.current_stream(dev))
+        rendered.record(torch.cuda.current_stream(fdev))
         host = torch.empty(frames.shape, dtype=frames.dtype,
                            pin_memory=True)
         copied = torch.cuda.Event()
@@ -187,13 +218,13 @@ def animate_video(
         th.start()
         try:
             pending = None                    # (device frames, n)
-            for s in range(0, F, chunk):
-                block = verts_all[s:s + chunk]
+            for d, block in blocks():
                 n = block.shape[0]
                 if n < chunk:  # pad to the block shape
                     block = torch.cat(
                         [block, block[-1:].expand(chunk - n, -1, -1)], dim=0)
-                frames = render_block(block)
+                with mesh_lib.on_device(d):
+                    frames = renderers[d](block)
                 if pending is not None:
                     q.put((*pull(pending[0]), pending[1]))
                     if mux_err:
@@ -206,6 +237,54 @@ def animate_video(
             th.join()
         if mux_err:
             raise mux_err[0]
+    return out_path
+
+
+def _animate_video_multihost(avatar, poses, trans, out_path, background,
+                             cam_t, size, focal, fps, chunk, window, shading,
+                             dev) -> str:
+    """Process-parallel animation: each process renders its frame slice
+    on ``dev``; the rendered frames gather to every process (through the
+    host) and process 0 muxes the MP4; a barrier closes it."""
+    from tpubody_torch.dist import multihost as mh
+
+    render_block, chunk, _ = _block_renderer(
+        avatar, background, cam_t, size, focal, window, chunk,
+        shading=shading, device=dev)
+    F = poses.shape[0]
+    per = -(-F // mh.process_count())          # lockstep per-process length
+    start, stop = mh.process_frame_slice(F)
+    local_poses = np.asarray(poses[start:stop])
+    local_trans = np.asarray(trans[start:stop])
+    n_local = local_poses.shape[0]
+    if n_local < per:                          # the tail process pads; the
+        reps = per - n_local                   # gather trims it
+        src_p = local_poses[-1:] if n_local else np.zeros_like(poses[:1])
+        src_t = local_trans[-1:] if n_local else np.zeros_like(trans[:1])
+        local_poses = np.concatenate(
+            [local_poses, np.repeat(src_p, reps, axis=0)], axis=0)
+        local_trans = np.concatenate(
+            [local_trans, np.repeat(src_t, reps, axis=0)], axis=0)
+
+    verts_local = rigging.animate(avatar, local_poses, local_trans,
+                                  device=dev)
+    blocks = []
+    for s in range(0, per, chunk):
+        block = verts_local[s:s + chunk]
+        n = block.shape[0]
+        if n < chunk:
+            block = torch.cat(
+                [block, block[-1:].expand(chunk - n, -1, -1)], dim=0)
+        blocks.append(_to_hwc(render_block(block).cpu().numpy())[:n])
+    # (processes * per, H, W, 3) in process order; only the last process's
+    # slice is padded, so [:F] is the clip in order.
+    gathered = mh.gather_frames_to_host(np.concatenate(blocks, axis=0))
+    if mh.process_index() == 0:
+        with video_lib.VideoWriter(out_path, fps=fps,
+                                   size=(size, size)) as writer:
+            for i in range(F):
+                writer.write(gathered[i])
+    torch.distributed.barrier()
     return out_path
 
 

@@ -320,10 +320,10 @@ def gen_smplh_batch(
 ):
     """Fit MANY (image, keypoints) pairs as lanes of one batch, then write
     each directory's artifacts as the single-frame entry does.  Returns
-    the FitResults of person 0 of each item, in input order."""
+    the FitResults of person 0 of each item, in input order.  ``mesh``
+    (``dist.mesh``) shards the frames over its devices."""
     import cv2
 
-    smplify._check_mesh(mesh)
     dev = resolve(device)
     config = config or load_config(config_yaml)
     if model is None:
@@ -351,7 +351,7 @@ def gen_smplh_batch(
     batch = smplify.fit_frames(
         model, np.stack(kps).astype(np.float32),
         np.asarray(centers, np.float32), config, dec_params=decoder,
-        device=dev)
+        mesh=mesh, device=dev)
     fits = save_batch_fit_results(items, batch, imgs, model, config,
                                   save_artifacts=save_artifacts, rows=rows,
                                   device=dev)

@@ -101,7 +101,8 @@ def refine(
 ):
     """images + keypoints -> HMR warm start -> batched SMPLify -> the full
     per-dir artifact set (conf.yaml, smplh.pkl, pre_smplh.pkl, smplh.obj,
-    overlay PNG).  Returns FitResults in input order."""
+    overlay PNG).  Returns FitResults in input order.  ``mesh``
+    (``dist.mesh``) shards the frames of the fit over its devices."""
     import os
 
     import cv2
@@ -110,7 +111,6 @@ def refine(
     from tpubody_torch.pipelines import gen_smplh as gen_lib
     from tpubody_torch.pipelines import hmr_infer
 
-    smplify._check_mesh(mesh)
     dev = resolve(device)
     config = config or gen_lib.load_config(config_yaml)
     if model is None:
@@ -148,7 +148,8 @@ def refine(
 
     batch = smplify.fit_frames(
         model, kps, img_centers, config, dec_params=decoder,
-        init_cam_t=init_cam_t, init_params=init_params, device=dev)
+        init_cam_t=init_cam_t, init_params=init_params, mesh=mesh,
+        device=dev)
     return gen_lib.save_batch_fit_results(items, batch, imgs, model, config,
                                           save_artifacts=save_artifacts,
                                           device=dev)

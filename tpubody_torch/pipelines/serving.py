@@ -82,15 +82,23 @@ def _to_numpy(t):
 # -- the flagship step ------------------------------------------------------
 class HMRSMPLStep:
     """images (B, H, W, 3) float32 NHWC -> (posed verts (B, V, 3) fp32,
-    weak-perspective cam (B, 3) fp32).  ``hmr`` and ``body`` are the HMR
-    module and the body model, both on ``device``; ``image_shape`` is one
-    request's input shape."""
+    weak-perspective cam (B, 3) fp32).  ``hmr`` (the HMR module, or the
+    int8 ``hmr_quant.QuantizedHMR``) and ``body`` are on ``device``;
+    ``image_shape`` is one request's input shape.  ``to(device)`` is a
+    replica on another device (a sharded server makes one a device)."""
 
     def __init__(self, hmr, body, device: torch.device, image_size: int):
         self.hmr = hmr
         self.body = body
         self.device = device
         self.image_shape = (image_size, image_size, 3)
+
+    def to(self, device: DeviceLike) -> "HMRSMPLStep":
+        from tpubody_torch.dist import mesh as mesh_lib
+
+        dev = resolve(device)
+        return HMRSMPLStep(mesh_lib.copy_to(self.hmr, dev),
+                           self.body.to(dev), dev, self.image_shape[0])
 
     @torch.inference_mode()
     def __call__(self, images) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -111,18 +119,32 @@ def hmr_smpl_step(dtype: torch.dtype = torch.bfloat16, n_joints: int = 24,
                   device: DeviceLike = "cuda") -> HMRSMPLStep:
     """The flagship serving step: images -> (posed verts, weak-persp cam),
     HMR (seeded random weights) then the body model's batched LBS, which
-    on CUDA is the fused LBS kernel.  The int8 ``quantize`` path is not
-    ported yet."""
-    if quantize or calib_images is not None:
-        raise NotImplementedError("quantize=True (int8 HMR) is not ported")
+    on CUDA is the fused LBS kernel.
+
+    ``quantize=True`` serves the int8 PTQ backbone (``models/hmr_quant``:
+    the HMR built in float32, BatchNorm folded, per-channel weight and
+    calibrated activation scales) instead of the ``dtype`` forward.  Pass
+    real ``calib_images`` for a production deployment; the default, 4
+    seeded images (numpy's ``default_rng(0)``, normal at scale 0.5, as in
+    ``tpubody``), is a throughput-benchmark stand-in."""
     from tpubody_torch.models import hmr as hmr_lib
     from tpubody_torch.models import params as params_lib
 
     dev = resolve(device)
-    model = hmr_lib.create_hmr(dtype=dtype, stem=stem, device=dev)
+    model = hmr_lib.create_hmr(dtype=torch.float32 if quantize else dtype,
+                               stem=stem, device=dev)
     body = params_lib.load_or_synthetic(
         "smpl", n_joints=n_joints, n_verts=n_verts, seed=0,
         warn=n_verts == 6890, device=dev)
+    if quantize:
+        from tpubody_torch.models import hmr_quant
+
+        if calib_images is None:
+            calib_images = np.random.default_rng(0).normal(
+                scale=0.5, size=(4, image_size, image_size, 3)).astype(
+                    np.float32)
+        model = hmr_quant.QuantizedHMR(
+            hmr_quant.quantize_hmr(model, calib_images))
     return HMRSMPLStep(model, body, dev, image_size)
 
 
@@ -136,6 +158,9 @@ class FitSMPLHStep:
 
     def __init__(self, fitter):
         self.fitter = fitter
+
+    def to(self, device: DeviceLike) -> "FitSMPLHStep":
+        return FitSMPLHStep(self.fitter.replica(device))
 
     def __call__(self, req):
         with torch.inference_mode(False):
@@ -241,7 +266,15 @@ class InferenceServer:
         request (no batch dim); requests are stacked per leaf.
     to_host: resolve futures to numpy (default), or to per-request slices
         of the device tensors (no device->host copy on the dispatch path).
-    device: where batches are placed and the step runs.
+    device: where batches are placed and the step runs (without
+        ``sharding``).
+    sharding: ``dist.mesh.frames_sharding(mesh)``: every bucket must
+        divide by the mesh size; each batch is split over the mesh and
+        the step runs once a shard, on a replica of the step on that
+        shard's device (``dist.mesh.replicate``: a step with a
+        ``to(device)`` method, as the port's steps have, is copied there;
+        a plain function is called as it is), then the outputs are
+        concatenated in shard order.
     """
 
     def __init__(
@@ -256,12 +289,25 @@ class InferenceServer:
         request_spec: Optional[Any] = None,
         device: DeviceLike = "cuda",
     ):
-        if sharding is not None:
-            raise NotImplementedError("sharding= waits for the port of dist")
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         if not self.buckets:
             raise ValueError("need at least one bucket size")
-        self.device = resolve(device)
+        self.sharding = sharding
+        if sharding is not None:
+            from tpubody_torch.dist import mesh as mesh_lib
+
+            if not isinstance(sharding, mesh_lib.FramesSharding):
+                raise TypeError("sharding must be dist.mesh.frames_sharding"
+                                f"(mesh), not {type(sharding).__name__}")
+            mesh = sharding.mesh
+            bad = [b for b in self.buckets if b % mesh.size]
+            if bad:
+                raise ValueError(
+                    f"buckets {bad} not divisible by mesh size {mesh.size}")
+            self.device = mesh.devices[0]
+            self._replicas = mesh_lib.replicate(step, mesh)
+        else:
+            self.device = resolve(device)
         self.image_shape = tuple(image_shape)
         self.request_spec = (request_spec if request_spec is not None
                              else TensorSpec(self.image_shape, np.float32))
@@ -277,9 +323,26 @@ class InferenceServer:
             self.warmup()
 
     # -- lifecycle -------------------------------------------------------
-    def _put(self, batch_tree):
-        return _tree_map(lambda a: torch.from_numpy(a).to(self.device),
+    def _put(self, batch_tree, device):
+        return _tree_map(lambda a: torch.from_numpy(a).to(device),
                          batch_tree)
+
+    def _run(self, batch_tree) -> list:
+        """The step on a host batch -> one output tree per shard (one in
+        all without sharding)."""
+        if self.sharding is None:
+            return [self._step(self._put(batch_tree, self.device))]
+        from tpubody_torch.dist import mesh as mesh_lib
+
+        mesh = self.sharding.mesh
+        leaves, structure = _flatten(batch_tree)
+        pieces = [mesh_lib.split_frames(a, mesh.size) for a in leaves]
+        outs = []
+        for i, dev in enumerate(mesh.devices):
+            shard = _unflatten(structure, [p[i] for p in pieces])
+            with mesh_lib.on_device(dev):
+                outs.append(self._replicas[i](self._put(shard, dev)))
+        return outs
 
     def _zeros_batch(self, bucket: int):
         return _unflatten(self._spec_struct, [
@@ -287,15 +350,18 @@ class InferenceServer:
             for l in self._spec_leaves])
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        devices = (self.sharding.mesh.distinct() if self.sharding is not None
+                   else [self.device])
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def warmup(self) -> None:
         """Run every bucket once up front, so no request pays first-call
         costs (kernel build, cuDNN plan selection)."""
         with torch.inference_mode():
             for b in self.buckets:
-                self._step(self._put(self._zeros_batch(b)))
+                self._run(self._zeros_batch(b))
         self._sync()
 
     def start(self) -> "InferenceServer":
@@ -405,9 +471,14 @@ class InferenceServer:
             for dst, src in zip(batch_leaves, _flatten(r.value)[0]):
                 dst[i] = src
         try:
-            out = self._step(self._put(batch_tree))
+            outs = self._run(batch_tree)
             if self.to_host:
-                out = _tree_map(_to_numpy, out)
+                outs = [_tree_map(_to_numpy, o) for o in outs]
+                if len(outs) > 1:          # shards, in order
+                    structure = _flatten(outs[0])[1]
+                    outs = [_unflatten(structure, [
+                        np.concatenate(parts) for parts in
+                        zip(*(_flatten(o)[0] for o in outs))])]
             else:
                 self._sync()
         except Exception as e:  # the loop must keep serving; report per request
@@ -416,7 +487,9 @@ class InferenceServer:
                 r.future.set_exception(e)
             return
         t_done = time.perf_counter()
+        per = bucket // len(outs)            # rows a shard
         for i, r in enumerate(batch):
-            r.future.set_result(_tree_map(lambda a, i=i: a[i], out))
+            r.future.set_result(_tree_map(lambda a, i=i: a[i % per],
+                                          outs[i // per]))
         self.stats.record(n, bucket - n,
                           [t_done - r.t_submit for r in batch])
