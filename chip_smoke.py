@@ -182,9 +182,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                1024^2 written as the reference's fixture directory, read
                by load_test_dir, then reconstruct(..., replace_hands=True)
                with the cache off (twice; the second with
-               TPUBODY_DETAIL=1, whose stitch/* substages it prints) and
-               on.  The launch counters are zeroed just before each run
-               and read just after: fused_raster 3, the others 0 (the
+               TPUBODY_DETAIL=1, whose stitch/* substages it prints; the
+               two must give equal stitched points and avatars) and on.
+               The launch counters are zeroed just before each run and
+               read just after: fused_raster 3, the others 0 (the
                kernel line's launches_reconstruct).  Gates: the hands were
                grafted, finite avatar, weights summing to 1, and
                points.npy, faces.npy, J_3d.npy, the avatar pickle, out.ply
@@ -263,17 +264,31 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                batch (1e-4); fit_frames(mesh=) on 8 frames at 2 iterations
                a stage against unsharded (phase 15's whole-fit bars);
                animate_video(mesh=) on 16 frames at 256^2: fused_raster
-               launched, frames within 1 LSB of the unsharded ones on all
-               but 1e-4 of the values (two unsharded runs differ that way
-               too: the vertex normals' index_add_ atomics);
+               launched, frames equal to the unsharded ones (and two
+               unsharded runs equal);
   26. multihost — two processes of this script (--multihost-worker) on the
                card, joined by torch.distributed with gloo at a free
                localhost port (NCCL admits one rank a GPU), each with a
                timeout: a frames array gathered in process order and a
                mean by all_reduce, each checked; animate_video(multihost=
                True) on the 16-frame clip at 256^2: each rank launches
-               fused_raster, rank 0's MP4 has 16 frames and they agree
-               with the single-process frames under phase 25's bar.
+               fused_raster, rank 0's MP4 has 16 frames and they equal
+               the single-process frames;
+  27. closure — vertex_normals on a video block (8 frames of the 6890-
+               vertex avatar) and on 8 frames of the stitched avatar of a
+               whole reconstruction at 1024^2 (phase 18's where it ran):
+               two runs bit-equal, the block equal to its frames one at a
+               time, the card within 1e-6 of the CPU; the largest vertex
+               degree; the old index_add_ form's run-to-run spread, and
+               both forms timed in turns by CUDA events on the same
+               inputs.  One 8-frame block at 1024^2 rendered twice through
+               the block renderer of animate_video (fused_raster; the
+               counters zeroed before and read after): equal frames.  Card
+               against CPU: resize_image for every method at a shrinking
+               and a growing 224^2 crop (nearest equal, else within 1e-5
+               of the range), scale_and_crop(host=False), unpose at 512
+               frames x 6890 vertices (1e-4, and its round trip),
+               save_npz and write_obj from tensors on the card.
 
 It then prints the whole script's time, the kernel line (each kernel with the card's name and power
 limit), the card's name and power limit, and, last,
@@ -281,7 +296,7 @@ limit), the card's name and power limit, and, last,
 ``--phases a,b`` runs a subset (names: lbs, serve, bench, raster, video,
 oracle, vtiming, zbuffer, reconstruct, rtiming, stage, backbone, fit,
 fitserve, ftiming, rwhole, demo, train, remat, pose2d, asf, quant, mesh,
-multihost, and the extra
+multihost, closure, and the extra
 vprofile: a torch.profiler pass over the video path) and prints no result
 line: a development aid.
 """
@@ -2018,17 +2033,20 @@ def phase_reconstruct_whole(dev, workdir):
         if sub:
             log("    substages, s: " + ", ".join(f"{k} {v:.4f}"
                                                  for k, v in sub.items()))
-    # The same inputs twice with the cache off: is the card's chain
-    # deterministic?  (Printed, not gated: tpubody makes no such promise.)
+    # The same inputs twice with the cache off: the card's chain is
+    # deterministic.
     a, b = meshes[0], meshes[1]
     same = a.points.shape == b.points.shape and bool(
-        np.array_equal(a.points, b.points))
-    log(f"  cache-off runs #0 and #1: stitched points "
+        np.array_equal(a.points, b.points)) and np.array_equal(
+            a.avatar.v_template, b.avatar.v_template)
+    log(f"  cache-off runs #0 and #1: stitched points and avatar "
         f"{'equal' if same else 'differ'}"
         + ("" if same or a.points.shape != b.points.shape else
            f" (max|d| {np.abs(a.points - b.points).max(axis=0)[:3]})")
         + f"; avatars of {a.avatar.v_template.shape[0]} and "
         f"{b.avatar.v_template.shape[0]} vertices")
+    if not same:
+        raise RuntimeError("two cache-off reconstructions differ")
     warm = runs[1]["stage_s"]
     total = sum(warm.values())
     log("  warm run, shares: " + ", ".join(
@@ -2106,9 +2124,10 @@ def phase_reconstruct_whole(dev, workdir):
         raise RuntimeError("the card's stitched mesh differs in size from "
                            "the CPU's")
     return dict(size=S, verts=WHOLE_VERTS, runs=runs,
+                cache_off_runs_equal=same,
                 host_half_card_vs_cpu=host_diff,
                 whole_chain_card_vs_cpu=whole_diff,
-                launches=runs[0]["launches"])
+                launches=runs[0]["launches"]), a.avatar
 
 
 def phase_demo(dev, workdir):
@@ -3512,12 +3531,11 @@ DIST_FRAMES = 16          # clip of the sharded and the two-process animation
 DIST_SIZE = 256
 DIST_TIMEOUT_S = 300      # each worker process of phase 26
 # Frames of the sharded or two-process animation against the unsharded
-# ones: the card's renderer is not bit-reproducible from run to run (the
-# vertex normals are summed by index_add_, whose float atomics land in
-# another order each run), so two unsharded runs already differ by 1 LSB
-# on about 2e-6 of the values.  Bar: at most 1 LSB, on at most 1e-4.
-DIST_FRAME_LSB = 1
-DIST_FRAME_SHARE = 1e-4
+# ones: equal.  The card's renderer is bit-reproducible since the vertex
+# normals are summed in a fixed order (phase 27), and a frame's pixels do
+# not depend on the other frames of its block or on the shard it lies in.
+DIST_FRAME_LSB = 0
+DIST_FRAME_SHARE = 0.0
 
 
 def frames_agree(a, b, what):
@@ -4064,10 +4082,211 @@ def multihost_worker(rank, world, port, workdir) -> int:
     return 0
 
 
+# -- slice G: the vertex-normal sum in a fixed order, the last functions ----
+CLOSURE_FRAMES = 8        # a video block
+VN_CPU_ATOL = 1e-6        # vertex_normals, card vs CPU (unit vectors)
+RESIZE_REL = 1e-5         # resize_image card vs CPU, of the image's range
+UNPOSE_FRAMES = 512
+VN_ITERS = 50
+
+
+def vertex_normals_index_add(verts, faces):
+    """The port's earlier vertex normals (three ``index_add_`` passes,
+    float atomics on the card, then ``torch.linalg.norm``): the "before"
+    of phase 27, kept here only."""
+    import torch
+
+    tri = faces.to(torch.int64)
+    v0, v1, v2 = (verts[..., tri[:, k], :] for k in range(3))
+    fn = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)
+    vn = torch.zeros_like(verts)
+    for k in range(3):
+        vn.index_add_(-2, tri[:, k], fn)
+    return vn / torch.clamp(torch.linalg.norm(vn, dim=-1, keepdim=True),
+                            min=1e-12)
+
+
+def hold_vertex_normals(name, verts, faces):
+    """vertex_normals on a block of frames on the card: two runs and the
+    prebuilt-table form bit-equal, the block equal to its frames one at a
+    time, the card within VN_CPU_ATOL of the CPU; the old index_add_ form's
+    run-to-run spread; both forms timed in turns (old, new, new, old) on
+    the same inputs, the new one with the table prebuilt as the video path
+    holds it, and the table's build."""
+    import torch
+
+    from tpubody_torch.render import raster
+
+    V = int(verts.shape[-2])
+    t0 = time.perf_counter()
+    inc = raster.incidence_table(faces, V)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_faces = int(faces.shape[0])
+    deg = torch.bincount(faces.reshape(-1).to(torch.int64), minlength=V)
+    hist = torch.bincount(deg).cpu().numpy()
+    a = raster.vertex_normals(verts, faces, inc)
+    b = raster.vertex_normals(verts, faces, inc)
+    c = raster.vertex_normals(verts, faces)
+    frames = all(torch.equal(a[i], raster.vertex_normals(verts[i], faces, inc))
+                 for i in range(verts.shape[0]))
+    cpu = raster.vertex_normals(verts.cpu(), faces.cpu())
+    cpu_err = float((a.cpu() - cpu).abs().max())
+    old = [vertex_normals_index_add(verts, faces) for _ in range(2)]
+    old_spread = float((old[0] != old[1]).float().mean())
+    old_vs_new = float((old[0] - a).abs().max())
+    times = {}
+    for form in ("old", "new", "new", "old"):
+        fn = ((lambda: vertex_normals_index_add(verts, faces)) if form == "old"
+              else (lambda: raster.vertex_normals(verts, faces, inc)))
+        times.setdefault(form, []).append(time_ms(fn, iters=VN_ITERS))
+    res = dict(frames=int(verts.shape[0]), vertices=V, faces=n_faces,
+               largest_degree=int(inc.offsets.diff().max()),
+               degree_counts={int(d): int(n) for d, n in enumerate(hist)
+                              if n},
+               runs_equal=torch.equal(a, b) and torch.equal(a, c),
+               batch_equals_frames=frames, cpu_max_abs=cpu_err,
+               index_add_share_differing=old_spread,
+               index_add_vs_new_max_abs=old_vs_new,
+               new_ms=times["new"], index_add_ms=times["old"],
+               table_build_s=build_s)
+    log(f"  vertex_normals, {name}: {json.dumps(res)}")
+    if not (res["runs_equal"] and frames) or cpu_err > VN_CPU_ATOL:
+        raise RuntimeError(f"vertex_normals on {name}: two runs or a batch "
+                           f"and its frames differ, or the card is more than "
+                           f"{VN_CPU_ATOL} from the CPU")
+    return res
+
+
+def phase_closure(dev, workdir, avatar=None):
+    """The vertex normals' fixed-order sum on a video block and on the
+    stitched avatar, one video block rendered twice through fused_raster,
+    and the last public functions card against CPU."""
+    import torch
+
+    from tpubody_torch import native
+    from tpubody_torch.image import ops as image_ops
+    from tpubody_torch.io import motion
+    from tpubody_torch.mesh import rigging
+    from tpubody_torch.models import humanoid, params, smpl
+    from tpubody_torch.pipelines import animate, demo, reconstruct as rec
+    from tpubody_torch.render import video
+
+    out = {}
+    setup_avatar, _, clip_path = make_avatar_and_clip(workdir)
+    clip = motion.read_amass(clip_path)
+    cam_t = np.array([0.0, 0.0, 2.5])
+    posed = rigging.animate(setup_avatar, clip.poses[:CLOSURE_FRAMES],
+                            clip.trans[:CLOSURE_FRAMES], device=dev)
+    cam = torch.as_tensor(cam_t, dtype=torch.float32, device=dev)
+    faces = torch.as_tensor(np.asarray(setup_avatar.faces, np.int32),
+                            device=dev)
+    out["video_block"] = hold_vertex_normals(
+        f"{CLOSURE_FRAMES} frames x 6890 vertices",
+        video._to_camera(posed, cam), faces)
+
+    if avatar is None:
+        fixture = os.path.join(workdir, "closure_fixture")
+        smplh, smpl_m = demo.make_fixture(fixture, size=RECON_SIZE,
+                                          verts=WHOLE_VERTS, device=dev)
+        front, back, mask, fit = rec.load_test_dir(fixture)
+        avatar = rec.reconstruct(front, back, mask, fit, smplh, smpl_m,
+                                 replace_hands=True, cache=False,
+                                 device=dev).avatar
+    posed_a = rigging.animate(avatar, clip.poses[:CLOSURE_FRAMES],
+                              clip.trans[:CLOSURE_FRAMES], device=dev)
+    faces_a = torch.as_tensor(np.asarray(avatar.faces, np.int32), device=dev)
+    out["avatar"] = hold_vertex_normals(
+        f"the stitched avatar, {CLOSURE_FRAMES} frames",
+        video._to_camera(posed_a, cam), faces_a)
+
+    # One video block twice through fused_raster, as animate_video renders
+    # it (the table built once by the block renderer).
+    render_block, _, _ = animate._block_renderer(
+        setup_avatar, None, cam_t, VIDEO_SIZE, video.DEFAULT_FOCAL, None,
+        CLOSURE_FRAMES, device=dev)
+    native.reset_launches()
+    first = render_block(posed)
+    second = render_block(posed)
+    torch.cuda.synchronize()
+    launches = dict(native.LAUNCHES)
+    out["video_frames_equal"] = torch.equal(first, second)
+    log(f"  one {CLOSURE_FRAMES}-frame block at {VIDEO_SIZE}^2 rendered "
+        f"twice: frames {'equal' if out['video_frames_equal'] else 'DIFFER'}"
+        f"; launches {launches}")
+    if not out["video_frames_equal"] or launches["fused_raster"] < 2:
+        raise RuntimeError("two renders of one video block differ")
+
+    # The last public functions, card against CPU.
+    rng = np.random.default_rng(27)
+    resize = {}
+    for tag, hw in (("shrink", (300, 260)), ("grow", (120, 90))):
+        img = rng.uniform(0, 255, size=hw + (3,)).astype(np.float32)
+        for method in ("nearest", "linear", "bilinear", "triangle", "cubic",
+                       "bicubic", "lanczos3", "lanczos5"):
+            g = image_ops.resize_image(img, 224, 224, method, device=dev)
+            c = image_ops.resize_image(img, 224, 224, method, device="cpu")
+            d = float((g.cpu() - c).abs().max())
+            resize[f"{method}_{tag}"] = d
+            bar = 0.0 if method == "nearest" else RESIZE_REL * 255.0
+            if d > bar or g.shape != (224, 224, 3):
+                raise RuntimeError(f"resize_image {method} {tag}: card vs "
+                                   f"CPU {d} (bar {bar})")
+    img = rng.uniform(0, 255, size=(500, 500, 3)).astype(np.float32)
+    crop = {route: image_ops.scale_and_crop(img, (250.0, 250.0), 2.5, 224,
+                                            host=False, device=route)
+            for route in (dev, "cpu")}
+    crop_err = float(np.abs(crop[dev] - crop["cpu"]).max())
+    log(f"  resize_image card vs CPU, max|d| on [0, 255] (bar nearest 0, "
+        f"else {RESIZE_REL} of the range): {json.dumps(resize)}; "
+        f"scale_and_crop(host=False) {crop_err:.3e}")
+    if crop_err > RESIZE_REL * 255.0:
+        raise RuntimeError("scale_and_crop(host=False) card vs CPU")
+
+    body = humanoid.humanoid(n_joints=24, n_verts=6890, device=dev)
+    poses, beta, trans = (
+        torch.as_tensor(rng.normal(scale=sc, size=(UNPOSE_FRAMES,) + shape),
+                        dtype=torch.float32, device=dev)
+        for sc, shape in ((0.3, (24, 3)), (0.5, (10,)), (1.0, (3,))))
+    state = smpl.forward_batch(body, poses, beta, trans)
+    back = smpl.unpose(body, state.verts, state, trans)
+    torch.cuda.synchronize()
+    back_cpu = smpl.unpose(body.to("cpu"), state.verts.cpu(),
+                           smpl.BodyState(*(x.cpu() for x in state)),
+                           trans.cpu())
+    unpose_cpu = float((back.cpu() - back_cpu).abs().max())
+    round_trip = float((back - state.v_posed).abs().max())
+    npz = os.path.join(workdir, "closure_model.npz")
+    params.save_npz(npz, body)
+    loaded = params.load_npz(npz, device=dev)
+    npz_equal = all(torch.equal(getattr(loaded, k), getattr(body, k))
+                    for k in ("v_template", "shapedirs", "posedirs",
+                              "j_regressor", "weights"))
+    objs = []
+    for name, (v, f) in (("card", (state.verts[0], faces)),
+                         ("cpu", (state.verts[0].cpu(), setup_avatar.faces))):
+        path = os.path.join(workdir, f"closure_{name}.obj")
+        smpl.write_obj(path, v, f)
+        with open(path, "rb") as fh:
+            objs.append(fh.read())
+    log(f"  unpose at {UNPOSE_FRAMES} x 6890: card vs CPU {unpose_cpu:.3e}, "
+        f"round trip {round_trip:.3e} (bars {CPU_VERT_ATOL}); save_npz from "
+        f"the card round-trips {npz_equal}; write_obj from the card "
+        f"byte-equal {objs[0] == objs[1]}")
+    if (unpose_cpu > CPU_VERT_ATOL or round_trip > CPU_VERT_ATOL
+            or not npz_equal or objs[0] != objs[1]):
+        raise RuntimeError("unpose, save_npz or write_obj failed on the card")
+    out.update(resize_card_vs_cpu=resize, scale_and_crop_card_vs_cpu=crop_err,
+               unpose_card_vs_cpu=unpose_cpu, unpose_round_trip=round_trip,
+               launches=launches, card=card_line())
+    return out
+
+
 ALL_PHASES = ("lbs", "serve", "bench", "raster", "video", "oracle", "vtiming",
               "zbuffer", "reconstruct", "rtiming", "stage", "backbone",
               "fit", "fitserve", "ftiming", "rwhole", "demo", "train",
-              "remat", "pose2d", "asf", "quant", "mesh", "multihost")
+              "remat", "pose2d", "asf", "quant", "mesh", "multihost",
+              "closure")
 EXTRA_PHASES = ("vprofile",)
 
 
@@ -4201,13 +4420,15 @@ def main() -> int:
             log("phase 17: fit timing")
             phase_fit_timing(dev, fit_model, fit_decoder, fit_res)
 
+    whole_avatar = None
     if set(phases) & {"rwhole", "demo"}:
         whole_dir = tempfile.mkdtemp(prefix="chip_smoke_whole_")
         try:
             if "rwhole" in phases:
                 log(f"phase 18: the whole reconstruct() at {RECON_SIZE}^2 "
                     f"with the hand graft")
-                whole = phase_reconstruct_whole(dev, whole_dir)
+                whole, whole_avatar = phase_reconstruct_whole(dev,
+                                                              whole_dir)
                 log(json.dumps({"reconstruct_whole": whole}))
                 for k in kernels:
                     k["launches_reconstruct"] = whole["launches"][k["name"]]
@@ -4277,6 +4498,20 @@ def main() -> int:
                     k["launches_multihost"] = mh["launches"][k["name"]]
         finally:
             shutil.rmtree(dist_dir, ignore_errors=True)
+
+    if "closure" in phases:
+        closure_dir = tempfile.mkdtemp(prefix="chip_smoke_closure_")
+        try:
+            log("phase 27: vertex normals in a fixed order, the last public "
+                "functions")
+            t0 = time.perf_counter()
+            closure = phase_closure(dev, closure_dir, whole_avatar)
+            closure["phase_s"] = time.perf_counter() - t0
+            log(json.dumps({"closure": closure}))
+            for k in kernels:
+                k["launches_closure"] = closure["launches"][k["name"]]
+        finally:
+            shutil.rmtree(closure_dir, ignore_errors=True)
 
     log(f"chip_smoke: the whole script took "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -165,3 +165,88 @@ def test_gen_smplh_batch_and_refine(fixture, tmp_path):
                         config=ts.FitConfig(**KW), device="cpu")
     assert ref[0].pose.shape == (156,) and np.isfinite(ref[0].pose).all()
     assert sorted(os.listdir(tmp_path / "r")) == ARTIFACTS
+
+
+@pytest.fixture(scope="module")
+def hmr_pair():
+    """The port's HMRPredictor with seeded weights at 64^2 on a 300-vertex
+    SMPL stand-in, and tpubody's on the same weights (carried as
+    tests/test_torch_serving.py carries them) and body model."""
+    import jax.numpy as jnp
+
+    from tpubody.models import hmr as jhmr
+    from tpubody.models import params as jparams
+    from tpubody.pipelines import hmr_infer as jinfer
+    from tpubody_torch.models import params as tparams
+    from tpubody_torch.pipelines import hmr_infer as tinfer
+
+    tbody = tparams.load_or_synthetic("smpl", n_joints=24, n_verts=300,
+                                      seed=0, warn=False)
+    jbody = jparams.load_or_synthetic("smpl", n_joints=24, n_verts=300,
+                                      seed=0, warn=False)
+    tpred = tinfer.HMRPredictor(smpl_model=tbody, dtype=torch.float32,
+                                img_size=64, device="cpu")
+    reference = {k[len("backbone."):] if k.startswith("backbone.") else k:
+                 v.numpy() for k, v in tpred.model.state_dict().items()
+                 if not k.endswith("num_batches_tracked")}
+    variables = jhmr.convert_torch_state_dict(reference,
+                                              jhmr.default_mean_params())
+    jpred = jinfer.HMRPredictor(smpl_model=jbody, variables=variables,
+                                dtype=jnp.float32, img_size=64)
+    return jpred, tpred
+
+
+@pytest.mark.parametrize("model_type,use_vposer", [
+    ("smplh", False), ("smpl", False), ("smplh", True)])
+def test_hmr_init_from_images_matches_tpubody(hmr_pair, tmp_path,
+                                              model_type, use_vposer):
+    """refine's HMR warm start: keypoint_crop_params bit-equal; init_cam_t
+    and init_params within the serving bar (1e-4, relative to each
+    array's largest magnitude where that exceeds 1: the translation's
+    depth is focal / (scale * 64) metres).  The crops are 64 px wide, so
+    both packages' host resizes are the identity and HMR sees the same
+    input."""
+    from tpubody.pipelines import refine as jrefine
+    from tpubody_torch.fit import vposer as tv
+    from tpubody_torch.pipelines import refine as trefine
+
+    jpred, tpred = hmr_pair
+    rng = np.random.default_rng(12)
+    paths, kps = [], []
+    for i in range(2):
+        img = rng.integers(0, 256, size=(96, 80, 3)).astype(np.uint8)
+        paths.append(str(tmp_path / f"{i}.png"))
+        cv2.imwrite(paths[-1], img)
+        kp = np.concatenate([rng.uniform(20, 60, size=(67, 2)),
+                             rng.integers(0, 2, size=(67, 1))], axis=1)
+        # The bbox of the confident points spans 64 / 1.2 px in x.
+        kp[0, :3] = (12.0, 40.0, 1.0)
+        kp[1, :3] = (12.0 + 64.0 / 1.2, 44.0, 1.0)
+        kp[kp[:, 2] > 0, 0] = np.clip(kp[kp[:, 2] > 0, 0], 12.0,
+                                      12.0 + 64.0 / 1.2)
+        kps.append(kp)
+    kps = np.stack(kps)
+    for k in kps:
+        c_t, s_t = trefine.keypoint_crop_params(k)
+        c_j, s_j = jrefine.keypoint_crop_params(k)
+        np.testing.assert_array_equal(c_t, c_j)
+        assert s_t == s_j and abs(s_t * 200.0 - 64.0) < 1e-9
+    centers = np.array([[40.0, 48.0], [40.0, 48.0]])
+    kw = dict(model_type=model_type, use_vposer=use_vposer,
+              focal_length=common.FOCAL)
+    enc_tree = common.encoder_tree() if use_vposer else None
+    _, enc = tv.from_flax_params(enc_tree=enc_tree) if use_vposer else (
+        None, None)
+    cam_t, params_t = trefine.hmr_init_from_images(
+        tpred, paths, kps, centers, ts.FitConfig(**kw), encoder=enc)
+    cam_j, params_j = jrefine.hmr_init_from_images(
+        jpred, paths, kps, centers, js.FitConfig(**kw), enc_params=enc_tree)
+    assert set(params_t) == set(params_j)
+    assert ("pose_embedding" in params_t) == use_vposer
+    for name, got, want in [("init_cam_t", cam_t, cam_j)] + [
+            (k, params_t[k], params_j[k]) for k in params_j]:
+        want = np.asarray(want)
+        assert got.shape == want.shape, name
+        scale = max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * scale,
+                                   err_msg=name)

@@ -117,6 +117,12 @@ def test_fold_matches_tpubody_within_one_ulp(pair):
                                       pair["folded"]["head"][k]["kernel"].T)
 
 
+def test_stage_sizes():
+    assert tq.STAGE_SIZES == thmr.STAGE_SIZES == jq.STAGE_SIZES
+    assert thmr.create_hmr(device="cpu").backbone.stage_sizes == \
+        jq.STAGE_SIZES
+
+
 def test_fold_algebra():
     """conv(x) * g + (beta - mean * g) == BN(conv(x)) (tpubody's check)."""
     rng = np.random.default_rng(1)

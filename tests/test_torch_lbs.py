@@ -134,6 +134,38 @@ def test_inverse_lbs_round_trip(data):
     np.testing.assert_allclose(back[0].numpy(), np.asarray(want), atol=ATOL)
 
 
+def test_unpose_matches_tpubody(data):
+    """The round trip within test_torch_lbs.py's 1e-5 (tests/test_lbs.py
+    holds tpubody's to 2e-5), and each frame within 1e-5 of tpubody's
+    ``unpose`` on the same posed vertices."""
+    raw, jm, tm, poses, betas, trans = data
+    st = tsmpl.forward_batch(tm, _t(poses), _t(betas), _t(trans))
+    back = tsmpl.unpose(tm, st.verts, st, _t(trans))
+    np.testing.assert_allclose(back.numpy(), st.v_posed.numpy(), atol=ATOL)
+    for i in range(len(poses)):
+        sj = jsmpl.forward(jm, _j(poses[i]), _j(betas[i]), _j(trans[i]))
+        want = jsmpl.unpose(jm, _j(st.verts[i]), sj, _j(trans[i]))
+        np.testing.assert_allclose(
+            tsmpl.unpose(tm, st.verts[i], st._replace(
+                rel_transforms=st.rel_transforms[i]), _t(trans[i])).numpy(),
+            np.asarray(want), atol=ATOL)
+    no_trans = tsmpl.unpose(tm, st.verts - _t(trans)[:, None], st)
+    np.testing.assert_allclose(no_trans.numpy(), back.numpy(), atol=ATOL)
+
+
+def test_smpl_write_obj_bytes(data, tmp_path):
+    raw, jm, tm, poses, betas, trans = data
+    verts = tsmpl.forward_batch(tm, _t(poses), _t(betas), _t(trans)).verts[0]
+    faces = np.asarray(raw["faces"])
+    jsmpl.write_obj(str(tmp_path / "j.obj"), verts.numpy(), faces)
+    tsmpl.write_obj(str(tmp_path / "t.obj"), verts, torch.as_tensor(faces))
+    tsmpl.write_obj(str(tmp_path / "n.obj"), verts.numpy(), faces)
+    want = (tmp_path / "j.obj").read_bytes()
+    assert want.count(b"\nf ") == len(faces)
+    assert (tmp_path / "t.obj").read_bytes() == want
+    assert (tmp_path / "n.obj").read_bytes() == want
+
+
 def test_smpl_forward_batch_and_verts(data):
     raw, jm, tm, poses, betas, trans = data
     want = jsmpl.forward_batch(jm, _j(poses), _j(betas), _j(trans))

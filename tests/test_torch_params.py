@@ -1,6 +1,9 @@
 """tpubody_torch.models.params / humanoid against tpubody's: the same seed
 gives bit-identical float64 arrays, and a tpubody ``save_npz`` file loads
 into the port."""
+import dataclasses
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -75,6 +78,61 @@ def test_npz_from_tpubody_loads(tmp_path):
     np.testing.assert_array_equal(t.faces, j.faces)
     np.testing.assert_array_equal(t.lmk_faces_idx, j.lmk_faces_idx)
     assert t.parents == j.parents
+
+
+def _hands(model, as_array):
+    """The model with seeded SMPLH hand PCA bases and means (the synthetic
+    generators make none)."""
+    rng = np.random.default_rng(7)
+    arrays = {k: rng.normal(size=shape).astype(np.float32)
+              for k, shape in (("hands_components_l", (12, 45)),
+                               ("hands_components_r", (12, 45)),
+                               ("hands_mean_l", (45,)),
+                               ("hands_mean_r", (45,)))}
+    return dataclasses.replace(
+        model, **{k: as_array(v) for k, v in arrays.items()})
+
+
+@pytest.mark.parametrize("extras", ["none", "hands_and_landmarks"])
+def test_save_npz_both_directions(tmp_path, extras):
+    """The port's file and tpubody's hold the same keys and bit-equal
+    arrays of the same dtypes; each package reads the other's."""
+    n_joints = 24 if extras == "none" else 55       # 55: expr + landmarks
+    j = jparams.synthetic(n_joints=n_joints, n_verts=400, seed=5)
+    t = tparams.synthetic(n_joints=n_joints, n_verts=400, seed=5,
+                          device="cpu")
+    if extras != "none":
+        j = _hands(j, jnp.asarray)
+        t = _hands(t, torch.as_tensor)
+    jpath, tpath = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
+    jparams.save_npz(jpath, j)
+    tparams.save_npz(tpath, t)
+    zj, zt = np.load(jpath), np.load(tpath)
+    assert set(zt.files) == set(zj.files)
+    assert ("hands_mean_l" in zt.files) == ("lmk_faces_idx" in zt.files) \
+        == (extras != "none")
+    for k in zj.files:
+        np.testing.assert_array_equal(zt[k], zj[k], err_msg=k)
+        assert zt[k].dtype == zj[k].dtype, k
+    fields = KEYS[:-1] + ("hands_components_l", "hands_components_r",
+                          "hands_mean_l", "hands_mean_r", "expr_dirs")
+    from_port = jparams.load_npz(tpath)
+    from_jax = tparams.load_npz(jpath)
+    for k in fields:
+        if getattr(j, k) is None:
+            assert getattr(from_port, k) is None
+            assert getattr(from_jax, k) is None
+            continue
+        np.testing.assert_array_equal(np.asarray(getattr(from_port, k)),
+                                      np.asarray(getattr(j, k)), err_msg=k)
+        np.testing.assert_array_equal(getattr(from_jax, k).numpy(),
+                                      getattr(t, k).numpy(), err_msg=k)
+    for k in ("faces", "lmk_faces_idx", "lmk_bary_coords"):
+        np.testing.assert_array_equal(np.asarray(getattr(from_port, k)),
+                                      np.asarray(getattr(j, k)), err_msg=k)
+        np.testing.assert_array_equal(np.asarray(getattr(from_jax, k)),
+                                      np.asarray(getattr(t, k)), err_msg=k)
+    assert from_port.parents == j.parents and from_jax.parents == t.parents
 
 
 def test_to_and_astype_start_fresh_cache():

@@ -115,6 +115,8 @@ def test_merge_rasters_and_binned_match():
 
 @pytest.mark.parametrize("batch", [(), (3,)])
 def test_vertex_normals_match(batch):
+    """Equal to tpubody's bit for bit on the CPU: the same sum order
+    (corner 0, 1, 2 in face order) and the same norm."""
     rng = np.random.default_rng(8)
     verts = rng.normal(size=batch + (50, 3)).astype(np.float32)
     faces = rng.integers(0, 50, size=(90, 3)).astype(np.int32)
@@ -123,7 +125,100 @@ def test_vertex_normals_match(batch):
     want = np.stack([np.asarray(JR.vertex_normals(jnp.asarray(x),
                                                   jnp.asarray(faces)))
                      for x in flat]).reshape(verts.shape)
-    np.testing.assert_allclose(got, want, atol=ATOL)
+    np.testing.assert_array_equal(got, want)
+
+
+def vertex_normals_index_add(verts, faces):
+    """The port's earlier form: three ``index_add_`` passes (float atomics
+    on a GPU, in order on the CPU), then ``torch.linalg.norm``."""
+    tri = faces.to(torch.int64)
+    v0, v1, v2 = (verts[..., tri[:, k], :] for k in range(3))
+    fn = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)
+    vn = torch.zeros_like(verts)
+    for k in range(3):
+        vn.index_add_(-2, tri[:, k], fn)
+    return vn / torch.clamp(torch.linalg.norm(vn, dim=-1, keepdim=True),
+                            min=1e-12)
+
+
+def normals_mesh(kind, batch):
+    """Seeded vertices (batch + (V, 3)) and faces: a random mesh (repeated
+    corners, unreferenced vertices) or the humanoid at SMPL's size
+    (largest degree 14)."""
+    rng = np.random.default_rng(11)
+    if kind == "random":
+        faces = rng.integers(0, 60, size=(120, 3)).astype(np.int32)
+        verts = rng.normal(size=batch + (60, 3)).astype(np.float32)
+    else:
+        from tpubody_torch.models import humanoid
+        raw = humanoid.humanoid_numpy(24, 6890)
+        faces = np.asarray(raw["faces"], np.int32)
+        verts = (raw["v_template"] + rng.normal(
+            scale=0.01, size=batch + raw["v_template"].shape)).astype(
+                np.float32)
+    return t(verts), t(faces)
+
+
+@pytest.mark.parametrize("kind", ["random", "humanoid"])
+@pytest.mark.parametrize("batch", [(), (3,)])
+def test_vertex_normals_equal_index_add_form(kind, batch):
+    verts, faces = normals_mesh(kind, batch)
+    want = vertex_normals_index_add(verts, faces)
+    assert torch.equal(TR.vertex_normals(verts, faces), want)
+    inc = TR.incidence_table(faces, int(verts.shape[-2]))
+    assert torch.equal(TR.vertex_normals(verts, faces, inc), want)
+
+
+@pytest.mark.parametrize("kind", ["random", "humanoid"])
+def test_vertex_normals_batch_equals_frames(kind):
+    verts, faces = normals_mesh(kind, (8,))
+    got = TR.vertex_normals(verts, faces)
+    for i in range(8):
+        assert torch.equal(got[i], TR.vertex_normals(verts[i], faces))
+
+
+def test_incidence_table_order():
+    """Faces as corner 0 in face order, then corner 1, then corner 2; a
+    face that names a vertex twice is listed twice."""
+    faces = torch.tensor([[0, 1, 2], [2, 1, 3], [3, 0, 2], [1, 1, 4]])
+    inc = TR.incidence_table(faces, 6)
+    off = inc.offsets.tolist()
+    assert [inc.faces[off[v]:off[v + 1]].tolist() for v in range(6)] == [
+        [0, 2],             # corner 0 of face 0, corner 1 of face 2
+        [3, 0, 1, 3],       # corner 0: 3; corner 1: 0, 1, 3
+        [1, 0, 2],          # corner 0: 1; corner 2: 0, 2
+        [2, 1],
+        [3],
+        [],                 # unreferenced
+    ]
+    _, humanoid_faces = normals_mesh("humanoid", ())
+    h = TR.incidence_table(humanoid_faces, 6890)
+    assert int(h.offsets.diff().max()) == 14
+    assert int(h.offsets[-1]) == 3 * 13524
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: two runs on the card are compared; "
+                    "chip_smoke.py's closure phase runs this at full size")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "humanoid"])
+def test_cuda_vertex_normals_reproducible(cuda, kind):
+    """Two card runs bit-equal, a batch equal to its frames, and the card
+    within 1e-6 of the CPU."""
+    verts, faces = normals_mesh(kind, (8,))
+    vc, fc = verts.to(cuda), faces.to(cuda)
+    a = TR.vertex_normals(vc, fc)
+    b = TR.vertex_normals(vc, fc, TR.incidence_table(fc, int(vc.shape[-2])))
+    assert torch.equal(a, b)
+    for i in range(8):
+        assert torch.equal(a[i], TR.vertex_normals(vc[i], fc))
+    cpu = TR.vertex_normals(verts, faces)
+    assert (a.cpu() - cpu).abs().max().item() <= 1e-6
 
 
 @pytest.mark.parametrize("with_bg", [False, True])

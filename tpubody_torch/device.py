@@ -3,6 +3,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device]
@@ -18,3 +19,11 @@ def resolve(device: DeviceLike) -> torch.device:
             f"device {str(dev)!r} requested but torch.cuda.is_available() "
             f"is False; pass device='cpu' to run on the CPU")
     return dev
+
+
+def to_host(x) -> np.ndarray:
+    """A tensor on any device, or an array, as a host numpy array (a
+    tensor's dtype kept)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

@@ -37,6 +37,7 @@ from tpubody_torch.device import DeviceLike, resolve
 
 NPOSE = 24 * 6  # 144: 24 joints x 6D rotation
 STEMS = ("conv7", "s2d")
+STAGE_SIZES = (3, 4, 6, 3)   # ResNet-50's bottlenecks per stage
 HEADS = ("fc1", "fc2", "decpose", "decshape", "deccam")
 
 
@@ -136,7 +137,7 @@ class ResNet50(nn.Module):
     activations are recomputed instead of stored (about a third more
     forward work for less live activation memory)."""
 
-    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
+    def __init__(self, stage_sizes: Sequence[int] = STAGE_SIZES,
                  stem: str = "conv7", remat: bool = False):
         super().__init__()
         if stem not in STEMS:
@@ -205,7 +206,7 @@ class HMR(nn.Module):
     """HMR regressor.  ``mean_params``: (144 + 10 + 3,) initial estimate."""
 
     def __init__(self, mean_params: np.ndarray, n_iter: int = 3,
-                 stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 stage_sizes: Sequence[int] = STAGE_SIZES,
                  stem: str = "conv7", remat: bool = False):
         super().__init__()
         self.n_iter = n_iter
@@ -330,7 +331,7 @@ def create_hmr(
     dtype: torch.dtype = torch.bfloat16,
     seed: int = 0,
     stem: str = "conv7",
-    stage_sizes: Sequence[int] = (3, 4, 6, 3),
+    stage_sizes: Sequence[int] = STAGE_SIZES,
     device: DeviceLike = "cuda",
     remat: bool = False,
 ) -> HMR:

@@ -49,6 +49,7 @@ from tpubody_torch.dist import mesh as mesh_lib
 from tpubody_torch.models import hmr as hmr_lib
 
 HEADS = hmr_lib.HEADS
+STAGE_SIZES = hmr_lib.STAGE_SIZES
 BN_EPS = 1e-5
 
 Padding = Tuple[Tuple[int, int], Tuple[int, int]]

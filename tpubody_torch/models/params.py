@@ -17,7 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from tpubody_torch.device import DeviceLike
+from tpubody_torch.device import DeviceLike, to_host
 
 # SMPL (24-joint) kinematic tree: parents[i] for joint i; root = -1.
 SMPL_PARENTS = (
@@ -249,9 +249,35 @@ def load_pickle(path: str, dtype=torch.float32, num_betas: int = 10,
     )
 
 
+_NPZ_EXTRAS = ("hands_components_l", "hands_components_r", "hands_mean_l",
+               "hands_mean_r", "expr_dirs", "lmk_faces_idx",
+               "lmk_bary_coords")
+
+
+def save_npz(path: str, model: BodyModelParams) -> None:
+    """Write the ``.npz`` cache of a body model, the keys and dtypes of
+    ``tpubody``'s ``save_npz``: the base arrays, ``parents`` as int32,
+    ``faces`` and each extra the model has.  Tensors on any device are
+    copied to the host; :func:`load_npz` reads the file back."""
+    extras = {key: to_host(getattr(model, key)) for key in _NPZ_EXTRAS
+              if getattr(model, key) is not None}
+    np.savez_compressed(
+        path,
+        v_template=to_host(model.v_template),
+        shapedirs=to_host(model.shapedirs),
+        posedirs=to_host(model.posedirs),
+        j_regressor=to_host(model.j_regressor),
+        weights=to_host(model.weights),
+        parents=np.asarray(model.parents, dtype=np.int32),
+        faces=to_host(model.faces),
+        **extras,
+    )
+
+
 def load_npz(path: str, dtype=torch.float32,
              device: DeviceLike = "cpu") -> BodyModelParams:
-    """Load the ``.npz`` cache written by ``tpubody``'s ``save_npz``."""
+    """Load the ``.npz`` cache written by :func:`save_npz` or by
+    ``tpubody``'s."""
     z = np.load(path)
 
     def opt(key, as_np=False):

@@ -14,6 +14,8 @@ import torch
 
 from tpubody_torch.core import fused_lbs
 from tpubody_torch.core import lbs as lbs_lib
+from tpubody_torch.device import to_host
+from tpubody_torch.mesh import meshio
 from tpubody_torch.models.params import BodyModelParams
 
 
@@ -107,6 +109,19 @@ def regress_joints(model: BodyModelParams, verts: torch.Tensor) -> torch.Tensor:
     return torch.matmul(model.j_regressor, verts)
 
 
+def unpose(
+    model: BodyModelParams,
+    verts: torch.Tensor,
+    state: BodyState,
+    trans: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Inverse-skin vertices (..., V, 3) back to the rest pose of
+    ``state`` (:func:`core.lbs.inverse_lbs` over its rest-relative
+    transforms), on the device of the inputs."""
+    return lbs_lib.inverse_lbs(verts, model.weights, state.rel_transforms,
+                               trans)
+
+
 def face_normals_z(verts: torch.Tensor, faces) -> torch.Tensor:
     """Z-component of (unnormalized) face normals, vectorized.
 
@@ -155,3 +170,9 @@ def divide_face(
     ff, fv, fi = _half(faces[z <= 0])
     bf, bv, bi = _half(faces[z > 0])
     return ff, fv, fi, bf, bv, bi
+
+
+def write_obj(path: str, verts, faces) -> None:
+    """Minimal OBJ export, the bytes of ``tpubody``'s: arrays or tensors
+    on any device (:func:`mesh.meshio.write_obj` on their host copies)."""
+    meshio.write_obj(path, to_host(verts), to_host(faces))

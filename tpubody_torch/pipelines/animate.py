@@ -34,6 +34,7 @@ from tpubody_torch.device import DeviceLike, resolve
 from tpubody_torch.dist import mesh as mesh_lib
 from tpubody_torch.io import motion as motion_lib
 from tpubody_torch.mesh import rigging
+from tpubody_torch.render import raster as raster_lib
 from tpubody_torch.render import tiled_raster as TR
 from tpubody_torch.render import video as video_lib
 
@@ -352,6 +353,8 @@ def _block_renderer(avatar, background, cam_t, size, focal, window, chunk,
     if size % 128 == 0:
         plan, pt, chunk = _tiled_plan(avatar.v_template, avatar.faces, cam_t,
                                       size, focal, chunk, dev)
+        incidence = raster_lib.incidence_table(faces_t,
+                                               len(avatar.v_template))
 
         def render_block(block):
             return video_lib.render_frames_tiled(
@@ -362,7 +365,8 @@ def _block_renderer(avatar, background, cam_t, size, focal, window, chunk,
                 large_windows=plan["large_windows"],
                 ladder_faces=pt["ladder_faces"],
                 ladder_specs=plan["ladder_specs"],
-                channel_major_out=True, i420_out=i420, shading=shading)
+                channel_major_out=True, i420_out=i420, shading=shading,
+                incidence=incidence)
 
         return render_block, chunk, i420
 
@@ -417,6 +421,8 @@ def orbit_video(
         # up to the slack factor).
         plan, pt, chunk = _tiled_plan(frames[0], avatar.faces, cam_t, size,
                                       focal, chunk, dev)
+        incidence = raster_lib.incidence_table(faces_t,
+                                               len(avatar.v_template))
     with video_lib.VideoWriter(out_path, fps=30.0,
                                size=(size, size)) as writer:
         for s0 in range(0, n_frames, chunk):
@@ -434,7 +440,7 @@ def orbit_video(
                     total_chunks=plan["total_chunks"],
                     large_windows=plan["large_windows"],
                     ladder_faces=pt["ladder_faces"],
-                    ladder_specs=plan["ladder_specs"])
+                    ladder_specs=plan["ladder_specs"], incidence=incidence)
             else:
                 imgs = video_lib.render_frames(
                     block, faces_t, colors_t, cam, bg,

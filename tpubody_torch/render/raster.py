@@ -279,21 +279,67 @@ def rasterize_binned(
     return merge_rasters(a, b, b_face_offset=int(small_faces.shape[0]))
 
 
-def vertex_normals(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
-    """Area-weighted per-vertex normals.  verts (..., V, 3), faces (F, 3).
+class Incidence(NamedTuple):
+    """Each vertex's incident faces, in the order ``tpubody``'s three
+    ``.at[].add`` passes add them: the faces that have the vertex as
+    corner 0, in face order, then as corner 1, then as corner 2.  Vertex
+    ``v``'s list is ``faces[offsets[v]:offsets[v + 1]]``."""
 
-    The face normals are summed with ``index_add_``, whose float atomics on
-    a GPU are not ordered: the last bits can differ from run to run."""
+    faces: torch.Tensor     # (3F,) int64 face ids, vertex by vertex
+    offsets: torch.Tensor   # (V + 1,) int64
+
+
+def incidence_table(faces: torch.Tensor, n_verts: int) -> Incidence:
+    """:class:`Incidence` of ``faces`` (F, 3) over ``n_verts`` vertices, on
+    their device, with no host read: a stable sort of the corner-major
+    corner list by vertex.  Build it once per topology where the faces are
+    fixed.  Made outside inference mode, so that a table a caller keeps
+    can index tensors that autograd saves later."""
+    with torch.inference_mode(False):
+        f = faces.to(torch.int64)
+        corners = f.T.reshape(-1)                    # corner-major, (3F,)
+        vid, order = torch.sort(corners, stable=True)
+        offsets = torch.searchsorted(
+            vid, torch.arange(n_verts + 1, device=f.device))
+        return Incidence(faces=order % max(int(f.shape[0]), 1),
+                         offsets=offsets)
+
+
+def vertex_normals(verts: torch.Tensor, faces: torch.Tensor,
+                   incidence: Optional[Incidence] = None) -> torch.Tensor:
+    """Area-weighted per-vertex normals.  verts (..., V, 3), faces (F, 3);
+    ``incidence`` is :func:`incidence_table` of these faces (built here
+    when None).
+
+    Each vertex sums its faces' normals in ``tpubody``'s order:
+    ``torch.segment_reduce`` over the table's segments, which adds a
+    segment's values one after another from zero in one thread on the
+    card (its kernel for outputs of more than one dimension) and in one
+    loop on the CPU.  The norm is the one ``tpubody`` (and
+    ``torch.linalg.norm``) computes on the CPU, ``sqrt(fma(z, z, fma(y, y,
+    x * x)))`` correctly rounded, spelled out in float64, where each
+    product is exact, with a rounding to the input dtype after each step.
+    No atomic and no reduction whose order could change with the device,
+    the run or the number of frames: the result is the same bits in every
+    run and for any batch, and on the CPU it equals ``tpubody``'s."""
     tri = faces.to(torch.int64)
-    v0 = verts[..., tri[:, 0], :]
-    v1 = verts[..., tri[:, 1], :]
-    v2 = verts[..., tri[:, 2], :]
-    fn = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)   # area-weighted
-    vn = torch.zeros_like(verts)
-    for k in range(3):
-        vn.index_add_(-2, tri[:, k], fn)
-    return vn / torch.clamp(torch.linalg.norm(vn, dim=-1, keepdim=True),
-                            min=1e-12)
+    n_verts = int(verts.shape[-2])
+    if incidence is None:
+        incidence = incidence_table(tri, n_verts)
+    corners = verts[..., tri, :]                        # (..., F, 3, 3)
+    v0 = corners[..., 0, :]
+    fn = torch.linalg.cross(corners[..., 1, :] - v0, corners[..., 2, :] - v0,
+                            dim=-1)                     # area-weighted
+    by_vertex = fn.movedim(-2, 0)[incidence.faces]      # (3F, ..., 3)
+    vn = torch.segment_reduce(
+        by_vertex.reshape(by_vertex.shape[0], -1), "sum",
+        offsets=incidence.offsets, axis=0, unsafe=True)
+    vn = vn.reshape((n_verts,) + by_vertex.shape[1:]).movedim(0, -2)
+    sq = vn.double() ** 2                               # exact
+    acc = (sq[..., 1] + sq[..., 0].to(vn.dtype)).to(vn.dtype)
+    acc = (sq[..., 2] + acc).to(vn.dtype)
+    norm = torch.sqrt(acc.double()).to(vn.dtype)
+    return (vn / torch.clamp(norm, min=1e-12)[..., None]).contiguous()
 
 
 def shade_lambert(

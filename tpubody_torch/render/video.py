@@ -136,16 +136,17 @@ def render_frame_binned(
 
 
 def _screen_and_attrs(verts_seq, all_faces, colors, cam_t, height, width,
-                      focal, shading):
+                      focal, shading, incidence=None):
     """The tiled renderer's inputs for a block of posed frames (B, V, 3):
     screen-space vertices (B, V, 3) and the per-vertex attributes the
     kernel interpolates, (B, V, 3) pre-shaded colour for "gouraud" or
-    (B, V, 6) colour + normal for "phong"."""
+    (B, V, 6) colour + normal for "phong".  ``incidence``:
+    ``raster.incidence_table(all_faces, V)``, built here when None."""
     if shading not in ("phong", "gouraud"):
         raise ValueError(f"unknown shading {shading!r}")
     v = _to_camera(verts_seq, cam_t)
     screen = _to_screen(v, height, width, focal)
-    normals = raster_lib.vertex_normals(v, all_faces)
+    normals = raster_lib.vertex_normals(v, all_faces, incidence)
     colors_b = colors.expand(normals.shape)
     if shading == "gouraud":
         nn = normals / torch.clamp(
@@ -189,6 +190,7 @@ def render_frames_tiled(
     channel_major_out: bool = False,
     i420_out: bool = False,
     shading: str = "phong",
+    incidence: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Batch-render frames through the fused tiled rasterizer.
 
@@ -201,11 +203,14 @@ def render_frames_tiled(
     shades per pixel; "gouraud" shades per vertex and interpolates the
     shaded colour (3 channels).  Returns (B, H, W, 3) uint8 unless
     ``to_uint8=False``; (B, 3, H, W) with ``channel_major_out``; planar
-    I420 (B, H*3//2, W) uint8 with ``i420_out``.  Nothing here
-    synchronises with the host.
+    I420 (B, H*3//2, W) uint8 with ``i420_out``.  ``incidence`` is
+    ``raster.incidence_table(all_faces, V)``, built once per avatar by
+    the caller (here, per call, when None).  Nothing here synchronises
+    with the host.
     """
     screen, attrs = _screen_and_attrs(verts_seq, all_faces, colors, cam_t,
-                                      height, width, focal, shading)
+                                      height, width, focal, shading,
+                                      incidence)
 
     # Channel-major throughout: the kernel writes (B, C, H, W).
     attr, mask, depth, _ = TR.render_attrs_tiled(
