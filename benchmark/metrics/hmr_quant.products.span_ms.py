@@ -1,0 +1,9 @@
+"""hmr_quant.products.span_ms: the int8 backbone's products
+(``torch._int_mm``), over its 53 convolutions.  The program's own span
+``hmr_quant.products``, by its CUDA events, summed within a step; the median
+over the profiled batches."""
+from benchmark import program_spans
+
+
+def read(run):
+    return program_spans.span_ms(run, "hmr_quant.products")

@@ -3552,39 +3552,6 @@ def frames_agree(a, b, what):
     return worst, share
 
 
-class MarkTimer:
-    """Contiguous CUDA-event spans: ``mark(name)`` closes the span since
-    the previous mark (or ``start``) under ``name``; spans of one name add
-    up.  Nothing synchronises until ``ms``."""
-
-    def __init__(self):
-        self.marks = []
-
-    def start(self):
-        import torch
-
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        self.marks.append((None, e))
-
-    def mark(self, name):
-        import torch
-
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        self.marks.append((name, e))
-
-    def ms(self):
-        import torch
-
-        torch.cuda.synchronize()
-        out = {}
-        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
-            if name is not None:
-                out[name] = out.get(name, 0.0) + a.elapsed_time(b)
-        return out
-
-
 def serve_requests(step, images, buckets, dev, sharding=None):
     """Every image as one request through InferenceServer(step) from its
     own thread -> (results, [(batch, outputs)] dispatched after warm-up,
@@ -3694,7 +3661,6 @@ def phase_quant(dev):
     from tpubody_torch import bench
     from tpubody_torch.models import hmr as hmr_lib
     from tpubody_torch.models import hmr_quant as hq
-    from tpubody_torch.models import smpl
     from tpubody_torch.pipelines import serving
 
     rules, mm_ms, mm_tops = int_mm_rules(dev)
@@ -3789,16 +3755,7 @@ def phase_quant(dev):
             timed[name].append(bench._event_ms(lambda: fn(big), QUANT_ITERS,
                                                3))
             peak[name] = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
-        split = MarkTimer()
-        for _ in range(5):
-            split.start()
-            xf = hq._backbone_int8(qp, big, mark=split.mark)
-            out = hq._ief_head(qp["head"], xf, hmr_lib.default_mean_params())
-            split.mark("head")
-            smpl.forward_batch_verts(int8.body, out.rotmats, out.shape,
-                                     None, pose_is_rotmat=True)
-            split.mark("lbs")
-    split_ms = {k: v / 5 for k, v in split.ms().items()}
+        split_ms = span_split(lambda: int8(big), 5)
     ms = {k: min(v) for k, v in timed.items()}
     res = {
         "batch": QUANT_BATCH,
@@ -3816,6 +3773,29 @@ def phase_quant(dev):
         f"(batch {QUANT_BATCH}, in turns {timed}); int8 split ms {split_ms};"
         f" peak GB above the inputs {peak}")
     return res
+
+
+def span_split(fn, iters):
+    """Run ``fn`` ``iters`` times under ``torch.profiler`` -> {span name:
+    device ms a call} from the program's own spans
+    (``tpubody_torch.utils.profiling``), each name's spans summed within
+    a call; the root span's name reads its whole call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpubody_torch.utils import profiling
+
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    records = profiling.spans()
+    profiling.clear()
+    out = {}
+    for r in records:
+        out[r["name"]] = out.get(r["name"], 0.0) + r["device_ms"] / iters
+    return out
 
 
 def hq_convs(qparams):

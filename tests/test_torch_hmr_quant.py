@@ -169,7 +169,7 @@ def test_quantized_conv_roundtrip_exact_for_representable():
                   x_scale=torch.tensor(0.25), kernel=kernel, strides=(1, 1),
                   padding=((0, 0), (0, 0)))
     x = torch.full((1, 2, 2, 2), 0.75)
-    out = tq._qconv(qc, x, False, "t", None, tq._no_mark)
+    out = tq._qconv(qc, x, False, "t", None)
     assert out.shape == (1, 2, 2, 1)
     assert torch.all(out == 2.875)
 

@@ -33,6 +33,7 @@ import torch
 from tpubody_torch import native
 from tpubody_torch.core import lbs as lbs_lib
 from tpubody_torch.core.rotations import rodrigues
+from tpubody_torch.utils.profiling import span
 
 PRECISIONS = ("highest", "bf16x3")
 TILE = 64    # frames and vertices a block of the kernel covers
@@ -259,7 +260,9 @@ def lbs_forward_batch_fused(
     if layouts is None:
         layouts = make_layouts(v_template, shapedirs, posedirs, j_regressor,
                                weights)
-    feat, g = lbs_prologue(layouts, parents, poses, beta, pose_is_rotmat)
-    if trans is not None:
-        trans = trans.contiguous()
-    return fused_lbs(layouts, feat, g, trans, kernel_precision)
+    with span("lbs.prologue"):
+        feat, g = lbs_prologue(layouts, parents, poses, beta, pose_is_rotmat)
+    with span("fused_lbs"):
+        if trans is not None:
+            trans = trans.contiguous()
+        return fused_lbs(layouts, feat, g, trans, kernel_precision)

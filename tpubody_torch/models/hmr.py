@@ -34,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tpubody_torch.core.rotations import rot6d_to_rotmat
 from tpubody_torch.device import DeviceLike, resolve
+from tpubody_torch.utils.profiling import span
 
 NPOSE = 24 * 6  # 144: 24 joints x 6D rotation
 STEMS = ("conv7", "s2d")
@@ -188,18 +189,19 @@ class ResNet50(nn.Module):
         return self.maxpool(torch.relu(self.bn1(x)))
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        x = self.stem(images)
-        remat = self.remat and torch.is_grad_enabled()
-        for i in range(len(self.stage_sizes)):
-            for block in getattr(self, f"layer{i + 1}"):
-                if remat:
-                    x = checkpoint(
-                        block, x, use_reentrant=False,
-                        context_fn=lambda b=block: (contextlib.nullcontext(),
-                                                    _stats_frozen(b)))
-                else:
-                    x = block(x)
-        return torch.mean(x, dim=(2, 3))   # global average pool
+        with span("hmr.backbone"):
+            x = self.stem(images)
+            remat = self.remat and torch.is_grad_enabled()
+            for i in range(len(self.stage_sizes)):
+                for block in getattr(self, f"layer{i + 1}"):
+                    if remat:
+                        x = checkpoint(
+                            block, x, use_reentrant=False,
+                            context_fn=lambda b=block: (
+                                contextlib.nullcontext(), _stats_frozen(b)))
+                    else:
+                        x = block(x)
+            return torch.mean(x, dim=(2, 3))   # global average pool
 
 
 class HMR(nn.Module):
@@ -243,23 +245,27 @@ class HMR(nn.Module):
     def ief(self, xf: torch.Tensor,
             rng: Optional[torch.Generator] = None) -> HMROutput:
         """The IEF head on pooled features (B, 2048)."""
-        B = xf.shape[0]
-        dt = self.fc1.weight.dtype
-        xf = xf.to(dt)
-        mean = self.mean_params
-        pose = mean[:NPOSE].expand(B, NPOSE)
-        shape = mean[NPOSE:NPOSE + 10].expand(B, 10)
-        cam = mean[NPOSE + 10:NPOSE + 13].expand(B, 3)
-        for _ in range(self.n_iter):
-            xc = torch.cat([xf, pose.to(dt), shape.to(dt), cam.to(dt)], dim=-1)
-            h = self._dropout(torch.relu(self.fc1(xc)), rng)
-            h = self._dropout(torch.relu(self.fc2(h)), rng)
-            h32 = h.to(self.decpose.weight.dtype)
-            pose = pose + self.decpose(h32)
-            shape = shape + self.decshape(h32)
-            cam = cam + self.deccam(h32)
-        rotmats = rot6d_to_rotmat(pose.reshape(B, 24, 6)).reshape(B, 24, 3, 3)
-        return HMROutput(rotmats=rotmats, shape=shape, cam=cam, pose6d=pose)
+        with span("hmr.ief"):
+            B = xf.shape[0]
+            dt = self.fc1.weight.dtype
+            xf = xf.to(dt)
+            mean = self.mean_params
+            pose = mean[:NPOSE].expand(B, NPOSE)
+            shape = mean[NPOSE:NPOSE + 10].expand(B, 10)
+            cam = mean[NPOSE + 10:NPOSE + 13].expand(B, 3)
+            for _ in range(self.n_iter):
+                xc = torch.cat([xf, pose.to(dt), shape.to(dt), cam.to(dt)],
+                               dim=-1)
+                h = self._dropout(torch.relu(self.fc1(xc)), rng)
+                h = self._dropout(torch.relu(self.fc2(h)), rng)
+                h32 = h.to(self.decpose.weight.dtype)
+                pose = pose + self.decpose(h32)
+                shape = shape + self.decshape(h32)
+                cam = cam + self.deccam(h32)
+            rotmats = rot6d_to_rotmat(pose.reshape(B, 24, 6)).reshape(
+                B, 24, 3, 3)
+            return HMROutput(rotmats=rotmats, shape=shape, cam=cam,
+                             pose6d=pose)
 
 
 def default_mean_params(seed: int = 0) -> np.ndarray:

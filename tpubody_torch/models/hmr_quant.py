@@ -47,6 +47,7 @@ from tpubody_torch.core.rotations import rot6d_to_rotmat
 from tpubody_torch.device import DeviceLike, resolve
 from tpubody_torch.dist import mesh as mesh_lib
 from tpubody_torch.models import hmr as hmr_lib
+from tpubody_torch.utils.profiling import span
 
 HEADS = hmr_lib.HEADS
 STAGE_SIZES = hmr_lib.STAGE_SIZES
@@ -199,27 +200,29 @@ def _backbone_f32(folded: dict, x: torch.Tensor,
 def _ief_head(head: dict, xf: torch.Tensor, mean_params: np.ndarray,
               n_iter: int = 3) -> hmr_lib.HMROutput:
     """float32 IEF loop on pooled features (``HMR.ief`` in eval mode)."""
-    B = xf.shape[0]
-    mean = torch.as_tensor(np.asarray(mean_params, np.float32),
-                           device=xf.device)
-    npose = hmr_lib.NPOSE
-    pose = mean[:npose].expand(B, npose)
-    shape = mean[npose:npose + 10].expand(B, 10)
-    cam = mean[npose + 10:].expand(B, 3)
+    with span("hmr.ief"):
+        B = xf.shape[0]
+        mean = torch.as_tensor(np.asarray(mean_params, np.float32),
+                               device=xf.device)
+        npose = hmr_lib.NPOSE
+        pose = mean[:npose].expand(B, npose)
+        shape = mean[npose:npose + 10].expand(B, 10)
+        cam = mean[npose + 10:].expand(B, 3)
 
-    def dense(name, v):
-        return F.linear(v, head[name]["weight"], head[name]["bias"])
+        def dense(name, v):
+            return F.linear(v, head[name]["weight"], head[name]["bias"])
 
-    for _ in range(n_iter):
-        xc = torch.cat([xf, pose, shape, cam], dim=-1)
-        h = torch.relu(dense("fc1", xc))
-        h = torch.relu(dense("fc2", h))
-        pose = pose + dense("decpose", h)
-        shape = shape + dense("decshape", h)
-        cam = cam + dense("deccam", h)
-    rotmats = rot6d_to_rotmat(pose.reshape(B, 24, 6)).reshape(B, 24, 3, 3)
-    return hmr_lib.HMROutput(rotmats=rotmats, shape=shape, cam=cam,
-                             pose6d=pose)
+        for _ in range(n_iter):
+            xc = torch.cat([xf, pose, shape, cam], dim=-1)
+            h = torch.relu(dense("fc1", xc))
+            h = torch.relu(dense("fc2", h))
+            pose = pose + dense("decpose", h)
+            shape = shape + dense("decshape", h)
+            cam = cam + dense("deccam", h)
+        rotmats = rot6d_to_rotmat(pose.reshape(B, 24, 6)).reshape(
+            B, 24, 3, 3)
+        return hmr_lib.HMROutput(rotmats=rotmats, shape=shape, cam=cam,
+                                 pose6d=pose)
 
 
 def _device_of(params: dict) -> torch.device:
@@ -340,51 +343,47 @@ def _mm_int8(cols: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.mm(cols.double(), w.t().double()).to(torch.int32)
 
 
-def _no_mark(phase: str) -> None:
-    pass
-
-
 def _qconv(qc: QConv, x: torch.Tensor, relu: bool, name: str,
-           observe: Optional[Callable], mark: Callable) -> torch.Tensor:
+           observe: Optional[Callable]) -> torch.Tensor:
     """Quantize the input per tensor, int8 products with int32 sums,
     dequantize into the float32 epilogue (``acc * (x_scale * w_scale) +
-    b``, then relu).  ``mark(phase)`` closes the spans "quantize" (with
-    the im2col), "products" and "epilogue"."""
-    xq = _quantize_input(x, qc.x_scale)
-    if observe is not None:
-        observe(name, xq)
-    cols, (B, OH, OW) = _im2col(xq, qc.kernel, qc.strides, qc.padding)
-    mark("quantize")
-    acc = _mm_int8(cols, qc.w)
-    mark("products")
-    y = acc.float().mul_(qc.x_scale * qc.w_scale).add_(qc.b)
-    if relu:
-        y.relu_()
-    mark("epilogue")
-    return y.view(B, OH, OW, -1)
+    b``, then relu): the spans "hmr_quant.quantize" (with the im2col),
+    "hmr_quant.products" and "hmr_quant.epilogue"."""
+    with span("hmr_quant.quantize"):
+        xq = _quantize_input(x, qc.x_scale)
+        if observe is not None:
+            observe(name, xq)
+        cols, (B, OH, OW) = _im2col(xq, qc.kernel, qc.strides, qc.padding)
+    with span("hmr_quant.products"):
+        acc = _mm_int8(cols, qc.w)
+    with span("hmr_quant.epilogue"):
+        y = acc.float().mul_(qc.x_scale * qc.w_scale).add_(qc.b)
+        if relu:
+            y.relu_()
+        return y.view(B, OH, OW, -1)
 
 
 def _backbone_int8(qparams: dict, x: torch.Tensor,
-                   observe: Optional[Callable] = None,
-                   mark: Callable = _no_mark) -> torch.Tensor:
+                   observe: Optional[Callable] = None) -> torch.Tensor:
     """The int8 backbone on NHWC float32 images -> (B, 2048) pooled
-    features.  ``observe(name, codes)`` sees each conv's int8 input;
-    ``mark`` as in :func:`_qconv`."""
-    x = _max_pool(_qconv(qparams["stem"], x, True, "stem", observe, mark))
-    mark("epilogue")
+    features.  ``observe(name, codes)`` sees each conv's int8 input.  The
+    max-pool, each residual add with its relu and the mean are spans
+    "hmr_quant.epilogue", beside :func:`_qconv`'s."""
+    y = _qconv(qparams["stem"], x, True, "stem", observe)
+    with span("hmr_quant.epilogue"):
+        x = _max_pool(y)
     for i, stage in enumerate(qparams["blocks"]):
         for j, blk in enumerate(stage):
             name = f"l{i}_{j}"
-            y = _qconv(blk["conv1"], x, True, name + ".c1", observe, mark)
-            y = _qconv(blk["conv2"], y, True, name + ".c2", observe, mark)
-            y = _qconv(blk["conv3"], y, False, name + ".c3", observe, mark)
-            res = (_qconv(blk["down"], x, False, name + ".dn", observe, mark)
+            y = _qconv(blk["conv1"], x, True, name + ".c1", observe)
+            y = _qconv(blk["conv2"], y, True, name + ".c2", observe)
+            y = _qconv(blk["conv3"], y, False, name + ".c3", observe)
+            res = (_qconv(blk["down"], x, False, name + ".dn", observe)
                    if "down" in blk else x)
-            x = y.add_(res).relu_()
-            mark("epilogue")
-    x = torch.mean(x, dim=(1, 2))
-    mark("epilogue")
-    return x
+            with span("hmr_quant.epilogue"):
+                x = y.add_(res).relu_()
+    with span("hmr_quant.epilogue"):
+        return torch.mean(x, dim=(1, 2))
 
 
 @torch.no_grad()
@@ -395,8 +394,9 @@ def forward(qparams: dict, images,
     if mean_params is None:
         mean_params = hmr_lib.default_mean_params()
     x = _images(images, _device_of(qparams))
-    return _ief_head(qparams["head"], _backbone_int8(qparams, x),
-                     mean_params, n_iter)
+    with span("hmr_quant.backbone"):
+        xf = _backbone_int8(qparams, x)
+    return _ief_head(qparams["head"], xf, mean_params, n_iter)
 
 
 def quantize_hmr(model: hmr_lib.HMR, calib_images) -> dict:

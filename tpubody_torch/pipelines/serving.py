@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from tpubody_torch.device import DeviceLike, resolve
+from tpubody_torch.utils.profiling import span
 
 
 class TensorSpec(NamedTuple):
@@ -104,11 +105,13 @@ class HMRSMPLStep:
     def __call__(self, images) -> Tuple[torch.Tensor, torch.Tensor]:
         from tpubody_torch.models import smpl as smpl_lib
 
-        images = torch.as_tensor(images, dtype=torch.float32,
-                                 device=self.device)
-        out = self.hmr(images)
-        verts = smpl_lib.forward_batch_verts(
-            self.body, out.rotmats, out.shape, None, pose_is_rotmat=True)
+        with span("step"):
+            with span("step.h2d"):
+                images = torch.as_tensor(images, dtype=torch.float32,
+                                         device=self.device)
+            out = self.hmr(images)
+            verts = smpl_lib.forward_batch_verts(
+                self.body, out.rotmats, out.shape, None, pose_is_rotmat=True)
         return verts, out.cam
 
 
