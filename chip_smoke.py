@@ -244,7 +244,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                default calibration images) behind InferenceServer(buckets=
                (1, 4, 16, 64)), 24 requests, each held to the step applied
                directly to its batch (1e-5); counters zeroed before the
-               server and read after: fused_lbs must have launched.  The
+               server and read after: fused_lbs and int8_requant must
+               have launched.  The
                int8 forward on the card against the CPU route (float64
                products) at batch 4 on the same parameters: at least 99.9%
                of the int8 codes equal at every conv input, outputs within
@@ -255,8 +256,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                layouts) checked, and both layouts of the second operand
                timed.  Frames/s of the int8 and the bf16 step at batch 512
                in turns (int8, bf16, bf16, int8; bench's timing helper),
-               the int8 step's split by CUDA events (quantize + im2col,
-               products, epilogue, head, LBS) and each step's peak memory;
+               the int8 step's split by its program spans (quantize +
+               im2col, products, epilogue, head, LBS) and each step's peak
+               memory; int8_requant at each launch of one backbone at
+               batch 512 (seeded sums, bit-equal to its plain version),
+               timed by CUDA events and summed, beside the plain version
+               and its byte bound (the kernel line's fifth entry);
   25. mesh    — a single-process mesh of the card listed twice: LBS at
                F=512 over the 2 shards against unsharded (fused_lbs's
                bf16x3 gate, 2 launches); the fp32 serving step behind
@@ -3691,8 +3696,9 @@ def phase_quant(dev):
         f" of sizes {[len(b) for b, _ in batches]}: p50 "
         f"{snap['latency_p50_ms']:.3f} ms, p99 {snap['latency_p99_ms']:.3f}"
         f" ms; launches {launches}")
-    if launches["fused_lbs"] == 0:
-        raise RuntimeError("fused_lbs was not launched on the int8 path")
+    for name in ("fused_lbs", "int8_requant"):
+        if launches[name] == 0:
+            raise RuntimeError(f"{name} was not launched on the int8 path")
     worst = hold_served(step, images, results, batches, dev)
     log(f"  served vs direct (same batch): max|d|={worst:.3e}")
     if worst > SAME_BATCH_ATOL:
@@ -3756,6 +3762,8 @@ def phase_quant(dev):
                                                3))
             peak[name] = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
         split_ms = span_split(lambda: int8(big), 5)
+    requant = requant_timing(qp, dev)
+    requant["launches"] = launches["int8_requant"]
     ms = {k: min(v) for k, v in timed.items()}
     res = {
         "batch": QUANT_BATCH,
@@ -3767,12 +3775,87 @@ def phase_quant(dev):
         "latency_p99_ms": snap["latency_p99_ms"],
         "code_share_min": min(shares.values()), "cpu_err": err_cpu,
         "fidelity": fid, "int_mm_ms": mm_ms, "int_mm_tops": mm_tops,
-        "launches": launches, "card": card_line()}
+        "launches": launches, "requant": requant, "card": card_line()}
     log(f"  int8 step {ms['int8']:.3f} ms = {res['int8_fps']:.1f} frames/s;"
         f" bf16 step {ms['bf16']:.3f} ms = {res['bf16_fps']:.1f} frames/s "
         f"(batch {QUANT_BATCH}, in turns {timed}); int8 split ms {split_ms};"
         f" peak GB above the inputs {peak}")
     return res
+
+
+def requant_timing(qp, dev):
+    """int8_requant at the launches of one backbone at QUANT_BATCH frames
+    of 224^2 (recorded from one frame: M grows with the batch), each
+    distinct launch timed by CUDA events on seeded sums, beside the plain
+    version (the eager chain it replaces, on the card) and the least time
+    its bytes take -> the kernel line's entry.  Sums over the backbone."""
+    import torch
+    from collections import Counter
+
+    from tpubody_torch.models import hmr_quant as hq
+
+    calls = []
+    launch = hq.requantize
+
+    def recording(acc, qc, relu, res=None, scales=(), keep=False):
+        calls.append((acc.shape[0] * QUANT_BATCH, acc.shape[1], relu,
+                      res is not None, len(scales), keep))
+        return launch(acc, qc, relu, res, scales, keep)
+
+    hq.requantize = recording
+    try:
+        with torch.inference_mode():
+            hq._backbone_int8(qp, torch.zeros((1, 224, 224, 3), device=dev))
+    finally:
+        hq.requantize = launch
+    g = torch.Generator(dev).manual_seed(17)
+    total = {"kernel_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "gb": 0.0}
+    for (M, O, relu, with_res, n, keep), count in Counter(calls).items():
+        acc = torch.randint(-3000, 3001, (M, O), generator=g, device=dev,
+                            dtype=torch.int32)
+        qc = hq.QConv(w=torch.zeros((O, 8), dtype=torch.int8, device=dev),
+                      w_scale=torch.rand(O, generator=g, device=dev) * 0.01,
+                      b=torch.randn(O, generator=g, device=dev),
+                      x_scale=torch.tensor(0.02, device=dev),
+                      kernel=(1, 1, 8), strides=(1, 1),
+                      padding=((0, 0), (0, 0)))
+        res = (torch.randn(M, O, generator=g, device=dev) if with_res
+               else None)
+        scales = [torch.tensor(0.05 + 0.01 * k, device=dev)
+                  for k in range(n)]
+        args = (acc, qc, relu, res, scales, keep)
+        got, want = hq.requantize(*args), hq.requantize_reference(*args)
+        if not (all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+                and (not keep or torch.equal(got[1], want[1]))):
+            raise RuntimeError(f"int8_requant differs from its plain version"
+                               f" at {(M, O, relu, with_res, n, keep)}")
+        del got, want
+        nbytes = M * O * (4 + 4 * with_res + 4 * keep + n)
+        total["kernel_ms"] += count * time_ms(lambda: hq.requantize(*args),
+                                              10, 2)
+        total["plain_ms"] += count * time_ms(
+            lambda: hq.requantize_reference(*args), 3, 1)
+        total["bound_ms"] += count * nbytes / PEAK_BYTES * 1e3
+        total["gb"] += count * nbytes / 1e9
+    log(f"  int8_requant over one backbone at batch {QUANT_BATCH} "
+        f"({len(calls)} launches, {total['gb']:.2f} GB): "
+        f"{total['kernel_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms "
+        f"(share {total['bound_ms'] / total['kernel_ms']:.3f}), plain "
+        f"{total['plain_ms']:.3f} ms")
+    return {
+        "name": "int8_requant",
+        "route": "cuda",
+        "source": "tpubody_torch/csrc/int8_requant.cu",
+        "replaces": None,
+        "shape": {"batch": QUANT_BATCH, "image": 224,
+                  "launches_backbone": len(calls)},
+        "ms": total["kernel_ms"],
+        "kernel_ms": total["kernel_ms"],
+        "plain_ms": total["plain_ms"],
+        "bound_ms": total["bound_ms"],
+        "bound_by": "bytes",
+        "gb": total["gb"],
+    }
 
 
 def span_split(fn, iters):
@@ -4461,6 +4544,7 @@ def main() -> int:
         log(json.dumps({"quant": quant}))
         for k in kernels:
             k["launches_quant"] = quant["launches"][k["name"]]
+        kernels.append(quant["requant"])
     if set(phases) & {"mesh", "multihost"}:
         dist_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
         try:

@@ -21,7 +21,11 @@ Bars, each with its reason:
     rounding tie moved by another summation order could flip one), and
     the outputs within 1e-4 (pool and head sum in another order);
   * the int8 outputs against forward_folded: tpubody's fidelity bar,
-    err/scale < 0.15 on pose6d, rotations orthonormal within 1e-4.
+    err/scale < 0.15 on pose6d, rotations orthonormal within 1e-4;
+  * requantize (the plain version the CPU runs) against the eager chain
+    it replaces, _qconv's epilogue then _quantize_input: bit-equal, and
+    so is the restructured backbone against the chain of _qconv (the
+    same float32 operations in the same order).
 """
 import jax
 import jax.numpy as jnp
@@ -32,6 +36,9 @@ import torch.nn.functional as F
 
 from tpubody.models import hmr as jhmr
 from tpubody.models import hmr_quant as jq
+from tests.torch_requant_common import (TIE_SCALE, dn_scales_apart,
+                                        eager_backbone, requant_case)
+from tpubody_torch import native
 from tpubody_torch.models import hmr as thmr
 from tpubody_torch.models import hmr_quant as tq
 
@@ -292,3 +299,67 @@ def test_quantized_step_defaults_to_the_card():
 
     with pytest.raises(RuntimeError, match="cuda"):
         serving.hmr_smpl_step(quantize=True)
+
+
+def _eager_requant(monkeypatch, acc, qc, relu, res, scales):
+    """The chain requantize replaces: _qconv's epilogue on these sums (its
+    products replaced by them), the backbone's residual add and relu, then
+    _quantize_input for each consumer scale."""
+    monkeypatch.setattr(tq, "_mm_int8", lambda cols, w: acc)
+    M = acc.shape[0]
+    y = tq._qconv(qc, torch.zeros((1, M, 1, 8)), relu, "t", None).view(M, -1)
+    if res is not None:
+        y = y.add_(res).relu_()
+    return [tq._quantize_input(y, s) for s in scales], y
+
+
+@pytest.mark.parametrize("M", (1, 17, 1000))
+@pytest.mark.parametrize("O", (64, 256, 2048))
+@pytest.mark.parametrize("n_scales", (1, 2))
+@pytest.mark.parametrize("keep", (False, True))
+@pytest.mark.parametrize("with_res", (False, True))
+@pytest.mark.parametrize("relu", (False, True))
+def test_requantize_plain_equals_the_eager_chain(monkeypatch, relu, with_res,
+                                                 keep, n_scales, O, M):
+    acc, qc, res, scales = requant_case(M, O, n_scales, with_res, "cpu")
+    want_codes, want_y = _eager_requant(monkeypatch, acc, qc, relu, res,
+                                        scales)
+    t = want_y[:, ::2] / TIE_SCALE          # exact on the even channels
+    assert (t - t.floor() == 0.5).any() and (t.abs() > 127).any()
+    codes, y = tq.requantize(acc, qc, relu, res, scales, keep)
+    assert len(codes) == n_scales
+    for c, w in zip(codes, want_codes):
+        assert c.dtype == torch.int8 and torch.equal(c, w)
+    if keep:
+        assert torch.equal(y, want_y)
+    else:
+        assert y is None
+
+
+@pytest.mark.parametrize("batch", (1, 2))
+@pytest.mark.parametrize("source", ("tpubody", "seeded", "dn_scales_apart"))
+def test_backbone_equals_the_eager_chain(pair, source, batch):
+    """The 53 observed codes, in order, and the pooled features; no kernel
+    launch on the CPU.  "tpubody": the pair's carried parameters, whose
+    codes are all zero from l0_0's c2 on; "seeded": the port's PTQ of a
+    seeded HMR, whose codes are not."""
+    if source == "tpubody":
+        qp = tq.from_tpubody(pair["qparams"])
+    else:
+        qp = tq.quantize_hmr(thmr.create_hmr(dtype=torch.float32, seed=3,
+                                             device="cpu"), pair["images"])
+    if source == "dn_scales_apart":
+        qp = dn_scales_apart(qp)
+    x = torch.as_tensor(pair["images"][:batch])
+    got, want = [], []
+    before = native.LAUNCHES["int8_requant"]
+    feats = tq._backbone_int8(qp, x, lambda n, c: got.append((n, c)))
+    assert native.LAUNCHES["int8_requant"] == before
+    ref = eager_backbone(qp, x, lambda n, c: want.append((n, c)))
+    assert [n for n, _ in got] == [n for n, _ in want]
+    assert len(got) == 53
+    if source != "tpubody":
+        assert all(c.abs().max() > 0 for _, c in got)
+    for (name, c), (_, w) in zip(got, want):
+        assert torch.equal(c, w), name
+    assert torch.equal(feats, ref)

@@ -27,9 +27,9 @@ SIZE = 32
 # The int8 backbone's convolutions at (3, 4, 6, 3): the stem, three a
 # bottleneck and four downsamples.
 N_CONVS = 1 + 3 * 16 + 4
-# Its epilogue spans: one a convolution, the max-pool, one residual add a
-# bottleneck, the mean.
-N_EPILOGUES = N_CONVS + 1 + 16 + 1
+# Its epilogue spans: one requantize a convolution (the residual adds
+# inside conv3's), the max-pool, the mean.
+N_EPILOGUES = N_CONVS + 1 + 1
 
 
 @pytest.fixture(scope="module")

@@ -20,7 +20,11 @@ the backbone's convolutions as int8 products with int32 sums:
 The IEF head stays float32.  ``tpubody`` computes the int8 convolution in
 XLA (``conv_general_dilated`` with int32 sums), not in Pallas, so here it
 is an im2col of the int8 input and one library product, ``torch._int_mm``,
-on the card; the epilogue is ordinary torch ops.
+on the card.  The epilogue and the next convolution's quantize are one
+step, :func:`requantize`: on the card one launch of the requantizing
+epilogue kernel (``csrc/int8_requant.cu``) from the int32 sums to the
+codes of every convolution that reads the output, bit-equal to the eager
+chain (:func:`requantize_reference`, which the CPU runs).
 
 ``torch._int_mm`` on CUDA (torch 2.11, cuBLASLt; checked on an H100): the
 first operand (M, K) needs M > 16, K and N multiples of 8, and at M = 17
@@ -36,13 +40,16 @@ float64 and cast to int32: exact, since |sum| <= 4608 * 127^2 < 2^53.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
-from typing import Callable, Dict, Iterator, List, Optional, Tuple
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpubody_torch import native
 from tpubody_torch.core.rotations import rot6d_to_rotmat
 from tpubody_torch.device import DeviceLike, resolve
 from tpubody_torch.dist import mesh as mesh_lib
@@ -345,10 +352,13 @@ def _mm_int8(cols: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _qconv(qc: QConv, x: torch.Tensor, relu: bool, name: str,
            observe: Optional[Callable]) -> torch.Tensor:
-    """Quantize the input per tensor, int8 products with int32 sums,
-    dequantize into the float32 epilogue (``acc * (x_scale * w_scale) +
-    b``, then relu): the spans "hmr_quant.quantize" (with the im2col),
-    "hmr_quant.products" and "hmr_quant.epilogue"."""
+    """One convolution in eager torch ops, float32 in and out: quantize
+    the input per tensor, int8 products with int32 sums, dequantize into
+    the float32 epilogue (``acc * (x_scale * w_scale) + b``, then relu):
+    the spans "hmr_quant.quantize" (with the im2col), "hmr_quant.products"
+    and "hmr_quant.epilogue".  :func:`_backbone_int8` takes the same steps
+    with :func:`requantize` between convolutions; the tests compose the
+    eager chain from this."""
     with span("hmr_quant.quantize"):
         xq = _quantize_input(x, qc.x_scale)
         if observe is not None:
@@ -363,25 +373,159 @@ def _qconv(qc: QConv, x: torch.Tensor, relu: bool, name: str,
         return y.view(B, OH, OW, -1)
 
 
+def requantize_reference(acc: torch.Tensor, qc: QConv, relu: bool,
+                         res: Optional[torch.Tensor] = None,
+                         scales: Sequence[torch.Tensor] = (),
+                         keep: bool = False
+                         ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
+    """The plain version of :func:`requantize`: the eager chain of
+    :func:`_qconv`'s epilogue, the residual add with its relu, and one
+    :func:`_quantize_input` a consumer scale."""
+    y = acc.float().mul_(qc.x_scale * qc.w_scale).add_(qc.b)
+    if relu:
+        y.relu_()
+    if res is not None:
+        y.add_(res).relu_()
+    return [_quantize_input(y, s) for s in scales], (y if keep else None)
+
+
+def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...],
+           dtype: torch.dtype, device: torch.device,
+           aligned: bool = True) -> None:
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
+        raise RuntimeError(f"{name}: {t.dtype} {tuple(t.shape)} on "
+                           f"{t.device}, expected {dtype} {shape} on {device}")
+    if not t.is_contiguous() or (aligned and t.data_ptr() % 16):
+        raise RuntimeError(f"{name} is not contiguous and 16-byte aligned")
+
+
+def requantize(acc: torch.Tensor, qc: QConv, relu: bool,
+               res: Optional[torch.Tensor] = None,
+               scales: Sequence[torch.Tensor] = (), keep: bool = False
+               ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
+    """One convolution's int32 sums (M, O) -> (the int8 codes (M, O) for
+    each consumer scale in ``scales``, the float32 output (M, O) if
+    ``keep`` else None).  The output is ``acc * (x_scale * w_scale) + b``,
+    relu'd if ``relu``; with ``res`` (M, O) float32 then ``relu(y +
+    res)``; the codes are ``clip(round(y / s), -127, 127)``.
+
+    On CUDA one launch of ``csrc/int8_requant.cu`` (at most two scales,
+    O a multiple of 4), which writes only these outputs and gives the
+    bits of :func:`requantize_reference`; anything else it does not take
+    raises RuntimeError.  The CPU runs :func:`requantize_reference`."""
+    if acc.device.type == "cpu":
+        return requantize_reference(acc, qc, relu, res, scales, keep)
+    if acc.device.type != "cuda" or acc.dim() != 2:
+        raise RuntimeError(f"requantize takes (M, O) sums on CUDA or the "
+                           f"CPU, got {tuple(acc.shape)} on {acc.device}")
+    (M, O), dev = acc.shape, acc.device
+    if O % 4 or len(scales) > 2:
+        raise RuntimeError(f"requantize: O = {O} is not a multiple of 4 or "
+                           f"{len(scales)} consumers are more than 2")
+    _check("acc", acc, (M, O), torch.int32, dev)
+    _check("w_scale", qc.w_scale, (O,), torch.float32, dev)
+    _check("b", qc.b, (O,), torch.float32, dev)
+    _check("x_scale", qc.x_scale, (), torch.float32, dev, aligned=False)
+    if res is not None:
+        _check("res", res, (M, O), torch.float32, dev)
+    for s in scales:
+        _check("scale", s, (), torch.float32, dev, aligned=False)
+    codes = [torch.empty((M, O), dtype=torch.int8, device=dev)
+             for _ in scales]
+    out = (torch.empty((M, O), dtype=torch.float32, device=dev) if keep
+           else None)
+
+    def ptr(ts, i):
+        return ts[i].data_ptr() if i < len(ts) else None
+
+    lib = native.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.tpubody_int8_requant(
+            acc.data_ptr(), qc.w_scale.data_ptr(), qc.x_scale.data_ptr(),
+            qc.b.data_ptr(), None if res is None else res.data_ptr(),
+            ptr(scales, 0), ptr(scales, 1), ptr(codes, 0), ptr(codes, 1),
+            None if out is None else out.data_ptr(), M, O, int(relu),
+            ctypes.c_void_p(stream))
+    native.check(err, "int8_requant launch")
+    native.LAUNCHES["int8_requant"] += 1
+    return codes, out
+
+
+def _sums(qc: QConv, x: torch.Tensor, name: str,
+          observe: Optional[Callable]):
+    """A convolution's input, int8 codes or float32 (quantized here: the
+    images, the pooled stem output) -> its int32 sums (M, O) and (B, OH,
+    OW): the spans "hmr_quant.quantize" (with the im2col) and
+    "hmr_quant.products"."""
+    with span("hmr_quant.quantize"):
+        if x.dtype != torch.int8:
+            x = _quantize_input(x, qc.x_scale)
+        if observe is not None:
+            observe(name, x)
+        cols, shape = _im2col(x, qc.kernel, qc.strides, qc.padding)
+    with span("hmr_quant.products"):
+        return _mm_int8(cols, qc.w), shape
+
+
+def _requant(acc: torch.Tensor, shape: Tuple[int, int, int], qc: QConv,
+             relu: bool, res: Optional[torch.Tensor] = None,
+             scales: Sequence[torch.Tensor] = (), keep: bool = False):
+    """:func:`requantize` in the span "hmr_quant.epilogue", its outputs
+    as NHWC (B, OH, OW, O)."""
+    with span("hmr_quant.epilogue"):
+        codes, y = requantize(acc, qc, relu,
+                              None if res is None else res.view(acc.shape),
+                              scales, keep)
+    return ([c.view(*shape, -1) for c in codes],
+            None if y is None else y.view(*shape, -1))
+
+
 def _backbone_int8(qparams: dict, x: torch.Tensor,
                    observe: Optional[Callable] = None) -> torch.Tensor:
     """The int8 backbone on NHWC float32 images -> (B, 2048) pooled
-    features.  ``observe(name, codes)`` sees each conv's int8 input.  The
-    max-pool, each residual add with its relu and the mean are spans
-    "hmr_quant.epilogue", beside :func:`_qconv`'s."""
-    y = _qconv(qparams["stem"], x, True, "stem", observe)
+    features.  ``observe(name, codes)`` sees each conv's int8 input, c1,
+    c2, c3 then dn a block.  Each convolution's sums go through one
+    :func:`requantize`, which writes the codes of every convolution that
+    reads its output, one tensor a consumer's scale (a stage's first block
+    has two, c1 and dn), and the float32 output only where a later step
+    reads it as float: the stem's for the max-pool, a ``down`` branch, the
+    residual of a block without one, the last block's for the mean.  The
+    first block quantizes the pooled stem output itself.  The max-pool and
+    the mean are spans "hmr_quant.epilogue" too."""
+    blocks = [(f"l{i}_{j}", blk) for i, stage in enumerate(qparams["blocks"])
+              for j, blk in enumerate(stage)]
+
+    def readers(k: int):
+        """Block k's input: its consumers' scales, and whether it is read
+        as float (the residual, or the mean after the last block)."""
+        if k == len(blocks):
+            return [], True
+        blk = blocks[k][1]
+        convs = [blk["conv1"]] + ([blk["down"]] if "down" in blk else [])
+        return [qc.x_scale for qc in convs], "down" not in blk
+
+    stem = qparams["stem"]
+    acc, shape = _sums(stem, x, "stem", observe)
+    _, y = _requant(acc, shape, stem, True, keep=True)
     with span("hmr_quant.epilogue"):
         x = _max_pool(y)
-    for i, stage in enumerate(qparams["blocks"]):
-        for j, blk in enumerate(stage):
-            name = f"l{i}_{j}"
-            y = _qconv(blk["conv1"], x, True, name + ".c1", observe)
-            y = _qconv(blk["conv2"], y, True, name + ".c2", observe)
-            y = _qconv(blk["conv3"], y, False, name + ".c3", observe)
-            res = (_qconv(blk["down"], x, False, name + ".dn", observe)
-                   if "down" in blk else x)
-            with span("hmr_quant.epilogue"):
-                x = y.add_(res).relu_()
+    inputs = [x, x]       # block input as c1 and dn read it: here float32
+    for k, (name, blk) in enumerate(blocks):
+        acc, shape = _sums(blk["conv1"], inputs[0], name + ".c1", observe)
+        (h,), _ = _requant(acc, shape, blk["conv1"], True,
+                           scales=[blk["conv2"].x_scale])
+        acc, shape = _sums(blk["conv2"], h, name + ".c2", observe)
+        (h,), _ = _requant(acc, shape, blk["conv2"], True,
+                           scales=[blk["conv3"].x_scale])
+        acc, shape = _sums(blk["conv3"], h, name + ".c3", observe)
+        if "down" in blk:
+            dn, dn_shape = _sums(blk["down"], inputs[1], name + ".dn",
+                                 observe)
+            _, x = _requant(dn, dn_shape, blk["down"], False, keep=True)
+        scales, keep = readers(k + 1)
+        inputs, x = _requant(acc, shape, blk["conv3"], False, res=x,
+                             scales=scales, keep=keep)
     with span("hmr_quant.epilogue"):
         return torch.mean(x, dim=(1, 2))
 

@@ -32,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Launch counts per kernel name, bumped by the wrappers.
 LAUNCHES: Dict[str, int] = {"fused_lbs": 0, "fused_raster": 0, "zbuffer": 0,
-                            "fused_stage": 0}
+                            "fused_stage": 0, "int8_requant": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -150,6 +150,8 @@ def library() -> ctypes.CDLL:
         lib.tpubody_fused_stage_smem_bytes.restype = ci
         lib.tpubody_fused_stage_launches.argtypes = [ci, ci, ci]
         lib.tpubody_fused_stage_launches.restype = ci
+        lib.tpubody_int8_requant.argtypes = [vp] * 10 + [ci] * 3 + [vp]
+        lib.tpubody_int8_requant.restype = ci
         lib.tpubody_cuda_error_string.argtypes = [ci]
         lib.tpubody_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
