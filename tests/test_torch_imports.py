@@ -57,6 +57,7 @@ MODULES = [
     "tpubody_torch.mesh.stitch",
     "tpubody_torch.models.fused_resnet",
     "tpubody_torch.models.hmr",
+    "tpubody_torch.models.hmr2",
     "tpubody_torch.models.hmr_quant",
     "tpubody_torch.models.hmr_train",
     "tpubody_torch.models.humanoid",

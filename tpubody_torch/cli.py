@@ -223,7 +223,8 @@ def _cmd_infer(args) -> int:
     from tpubody_torch.pipelines import hmr_infer
 
     smpl = params_lib.load(args.smpl) if args.smpl else None
-    predictor = hmr_infer.HMRPredictor(smpl_model=smpl, device=args.device)
+    predictor = hmr_infer.HMRPredictor(smpl_model=smpl, device=args.device,
+                                       arch=args.arch)
     if args.torch_ckpt:
         predictor.load_torch_checkpoint(args.torch_ckpt)
     result = predictor.from_files(args.images)
@@ -574,8 +575,14 @@ def main(argv=None) -> int:
     p.add_argument("images", nargs="+", help="input image files")
     p.add_argument("--out", required=True, help="output directory")
     p.add_argument("--format", choices=("obj", "ply"), default="obj")
+    p.add_argument("--arch", choices=("hmr_r50", "hmr2_vith"),
+                   default="hmr_r50",
+                   help="the regressor: HMR (ResNet-50 + IEF, 224^2 crops) "
+                        "or HMR 2.0 (ViT-H/16 + cross-attention decoder, "
+                        "256^2 crops)")
     p.add_argument("--torch-ckpt", default=None,
-                   help="reference torch HMR checkpoint to convert")
+                   help="reference torch checkpoint to convert (SPIN's "
+                        "HMR, or 4D-Humans' HMR 2.0 with --arch hmr2_vith)")
     p.add_argument("--smpl", default=None,
                    help="SMPL model file (pkl/npz); defaults to the "
                         "conventional asset spots / TPUBODY_SMPL_PATH, "

@@ -268,14 +268,27 @@ class HMR(nn.Module):
                              pose6d=pose)
 
 
+def _tiled_mean(sixd) -> np.ndarray:
+    """(144 + 10 + 3,): ``sixd`` for each joint, zero shape, camera
+    (0.9, 0, 0)."""
+    return np.concatenate([np.tile(np.array(sixd, np.float32), 24),
+                           np.zeros(10, np.float32),
+                           np.array([0.9, 0.0, 0.0], np.float32)])
+
+
 def default_mean_params(seed: int = 0) -> np.ndarray:
     """Deterministic stand-in for the reference's ``smpl_mean_params.npz``:
     identity 6D rotations, zero shape, unit-scale camera."""
     del seed
-    ident6d = np.tile(np.array([1, 0, 0, 0, 1, 0], np.float32), 24)
-    shape = np.zeros(10, np.float32)
-    cam = np.array([0.9, 0.0, 0.0], np.float32)
-    return np.concatenate([ident6d, shape, cam])
+    return _tiled_mean((1, 0, 0, 0, 1, 0))
+
+
+def identity_mean_params() -> np.ndarray:
+    """A valid IEF start: each joint's 6D pose the identity's first two
+    columns, ``(1, 0, 0, 1, 0, 0)`` as ``rot6d_to_rotmat`` reads it, zero
+    shape, camera (0.9, 0, 0).  (:func:`default_mean_params` tiles
+    ``tpubody``'s ``(1, 0, 0, 0, 1, 0)``, whose second column is zero.)"""
+    return _tiled_mean((1, 0, 0, 1, 0, 0))
 
 
 def load_mean_params(path: str) -> np.ndarray:

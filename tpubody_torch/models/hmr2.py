@@ -1,0 +1,414 @@
+"""HMR 2.0 (Goel et al., "Humans in 4D", ICCV 2023, arXiv:2305.20091): a
+ViT-H/16 encoder as ViTPose builds it (Xu et al., arXiv:2204.12484) and a
+cross-attention transformer decoder that reads SMPL out of one token, with
+the layer equations of 4D-Humans (``hmr2/models/backbones/vit.py``,
+``hmr2/models/heads/smpl_head.py``,
+``hmr2/models/components/pose_transformer.py``).
+
+Input (B, 256, 256, 3) NHWC normalised images -> ``hmr.HMROutput``
+(rotation matrices (B, 24, 3, 3), betas (B, 10), weak-perspective camera
+(B, 3), the 6D pose (B, 144)), so ``HMRSMPLStep`` serves it as it serves
+HMR.  The model keeps the middle ``crop_width`` columns (32:224 of 256),
+embeds 16 x 16 patches with padding 2 (a 16 x 12 grid: 192 tokens), adds
+``pos_embed[:, 1:] + pos_embed[:, :1]`` (the class slot goes to every
+token), runs 32 pre-norm blocks ``x += attn(LN1(x)); x += mlp(LN2(x))``
+(LayerNorm eps 1e-6, 16 heads of 80, GELU) and ``last_norm``.  The decoder
+embeds a zero token, adds its position embedding and runs 6 layers ``x +=
+SA(LN(x)); x += CA(LN(x), tokens); x += FF(LN(x))`` (LayerNorm eps 1e-5,
+8 heads of 64, the cross-attention's keys and values from the 192
+encoder tokens).  ``decpose``, ``decshape`` and ``deccam`` add to the mean
+parameters in one pass (``IEF_ITERS`` 1), and the 6D pose becomes rotation
+matrices.  Every width is a constructor argument; the defaults are the
+published ones.
+
+Precision, as ``torch.autocast(dtype=bfloat16)`` computes the published
+module, spelled out for a ``dtype`` model (``to_compute``): the patch
+convolution, every Linear of the encoder and the decoder and the attention
+take operands in ``dtype`` and accumulate in float32; the LayerNorms, their
+statistics and the softmax are float32; the residual streams are float32
+(the published decoder's in-place ``x += pos_embedding`` would keep its
+one-token stream in bf16); the readout and the pose state are float32, as
+``HMR.ief`` keeps them.  The encoder's tokens are cast to ``dtype`` once
+for the six cross-attentions, which round them the same way each.
+
+The 6D layout: 4D-Humans reads a joint's 6 numbers as (2, 3), the two
+columns one after the other; the port's ``rot6d_to_rotmat`` reads (3, 2).
+The head keeps the published parameters and buffers as they are
+(``decpose`` and ``init_body_pose`` in 4D-Humans' layout) and reorders the
+pose into the port's layout before the rotation matrices, so a 4D-Humans
+checkpoint loads by name and ``pose6d`` and ``mean_params`` are in the
+layout of the rest of the port.
+
+State-dict names are 4D-Humans' module paths: ``backbone.patch_embed.proj``,
+``backbone.pos_embed``, ``backbone.blocks.{i}.{norm1, attn.qkv, attn.proj,
+norm2, mlp.fc1, mlp.fc2}``, ``backbone.last_norm``,
+``smpl_head.transformer.{to_token_embedding, pos_embedding}``,
+``smpl_head.transformer.transformer.layers.{i}.{0, 1, 2}.{norm, fn.*}``,
+``smpl_head.{decpose, decshape, deccam}`` and the mean parameters
+``smpl_head.{init_body_pose, init_betas, init_cam}``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tpubody_torch.core.rotations import rot6d_to_rotmat
+from tpubody_torch.device import DeviceLike, resolve
+from tpubody_torch.models.hmr import NPOSE, HMROutput, identity_mean_params
+from tpubody_torch.utils.profiling import span
+
+N_JOINTS = NPOSE // 6
+PATCH_PADDING = 2      # ViTPose's 4 + 2 * (ratio // 2 - 1) at ratio 1
+ENCODER_EPS = 1e-6
+DECODER_EPS = 1e-5
+INIT_STD = 0.02        # ViTPose's truncated normal for the encoder
+HEAD_GAIN = 0.01       # the readout's xavier gain, as hmr.init_weights
+MEAN_KEYS = ("init_body_pose", "init_betas", "init_cam")
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` with its input rounded to the layer's dtype."""
+    return layer(x.to(layer.weight.dtype))
+
+
+def _heads(x: torch.Tensor, parts: int, heads: int) -> torch.Tensor:
+    """(B, N, parts * heads * d) -> (parts, B, heads, N, d), a view."""
+    B, N, _ = x.shape
+    return x.view(B, N, parts, heads, -1).permute(2, 0, 3, 1, 4)
+
+
+def _merge(y: torch.Tensor) -> torch.Tensor:
+    """(B, heads, N, d) -> (B, N, heads * d)."""
+    B, _, N, _ = y.shape
+    return y.transpose(1, 2).reshape(B, N, -1)
+
+
+# -- the encoder: ViT-H/16 as ViTPose builds it -----------------------------
+class PatchEmbed(nn.Module):
+    def __init__(self, patch_size: int, dim: int):
+        super().__init__()
+        self.proj = nn.Conv2d(3, dim, patch_size, stride=patch_size,
+                              padding=PATCH_PADDING)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) NHWC -> (B, tokens, dim), row-major over the
+        grid, in the convolution's dtype."""
+        x = self.proj(images.permute(0, 3, 1, 2).to(self.proj.weight.dtype))
+        return x.flatten(2).transpose(1, 2)
+
+
+class Attention(nn.Module):
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        q, k, v = _heads(_linear(self.qkv, x), 3, self.heads)
+        return _linear(self.proj, _merge(
+            F.scaled_dot_product_attention(q, k, v)))
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.act = nn.GELU()
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.act(_linear(self.fc1, x)))
+
+
+class Block(nn.Module):
+    def __init__(self, dim: int, heads: int, mlp_dim: int):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=ENCODER_EPS)
+        self.attn = Attention(dim, heads)
+        self.norm2 = nn.LayerNorm(dim, eps=ENCODER_EPS)
+        self.mlp = Mlp(dim, mlp_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with span("hmr2.attention"):
+            x = x + self.attn(self.norm1(x))
+        with span("hmr2.mlp"):
+            return x + self.mlp(self.norm2(x))
+
+
+class ViTH(nn.Module):
+    """(B, image_size, image_size, 3) NHWC -> (B, tokens, dim) float32
+    tokens after ``last_norm``."""
+
+    def __init__(self, image_size: int = 256, crop_width: int = 192,
+                 patch_size: int = 16, dim: int = 1280, depth: int = 32,
+                 heads: int = 16, mlp_dim: int = 5120):
+        super().__init__()
+        self.image_size, self.crop_width = image_size, crop_width
+        tokens = (image_size // patch_size) * (crop_width // patch_size)
+        self.patch_embed = PatchEmbed(patch_size, dim)
+        self.pos_embed = nn.Parameter(torch.zeros(1, tokens + 1, dim))
+        self.blocks = nn.ModuleList(Block(dim, heads, mlp_dim)
+                                    for _ in range(depth))
+        self.last_norm = nn.LayerNorm(dim, eps=ENCODER_EPS)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        with span("hmr2.backbone"):
+            lo = (self.image_size - self.crop_width) // 2
+            x = self.patch_embed(images[:, :, lo:lo + self.crop_width])
+            x = x + (self.pos_embed[:, 1:] + self.pos_embed[:, :1])
+            for block in self.blocks:
+                x = block(x)
+            return self.last_norm(x)
+
+
+# -- the SMPL head: 4D-Humans' TransformerDecoder and readout -------------
+class PreNorm(nn.Module):
+    def __init__(self, dim: int, fn: nn.Module):
+        super().__init__()
+        self.norm = nn.LayerNorm(dim, eps=DECODER_EPS)
+        self.fn = fn
+
+    def forward(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
+        return self.fn(self.norm(x), **kwargs)
+
+
+class SelfAttention(nn.Module):
+    """4D-Humans' ``Attention``: ``to_qkv`` without bias, computed in full
+    over the decoder's one token."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int):
+        super().__init__()
+        self.heads = heads
+        self.to_qkv = nn.Linear(dim, 3 * heads * dim_head, bias=False)
+        self.to_out = nn.Sequential(nn.Linear(heads * dim_head, dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        q, k, v = _heads(_linear(self.to_qkv, x), 3, self.heads)
+        return _linear(self.to_out[0], _merge(
+            F.scaled_dot_product_attention(q, k, v)))
+
+
+class CrossAttention(nn.Module):
+    def __init__(self, dim: int, context_dim: int, heads: int,
+                 dim_head: int):
+        super().__init__()
+        self.heads = heads
+        self.to_kv = nn.Linear(context_dim, 2 * heads * dim_head, bias=False)
+        self.to_q = nn.Linear(dim, heads * dim_head, bias=False)
+        self.to_out = nn.Sequential(nn.Linear(heads * dim_head, dim))
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        k, v = _heads(_linear(self.to_kv, context), 2, self.heads)
+        q = _heads(_linear(self.to_q, x), 1, self.heads)[0]
+        return _linear(self.to_out[0], _merge(
+            F.scaled_dot_product_attention(q, k, v)))
+
+
+class FeedForward(nn.Module):
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.net = nn.Sequential(nn.Linear(dim, hidden), nn.GELU(),
+                                 nn.Dropout(0.0), nn.Linear(hidden, dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.net(x.to(self.net[0].weight.dtype))
+
+
+class TransformerCrossAttn(nn.Module):
+    def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
+                 mlp_dim: int, context_dim: int):
+        super().__init__()
+        self.layers = nn.ModuleList(nn.ModuleList([
+            PreNorm(dim, SelfAttention(dim, heads, dim_head)),
+            PreNorm(dim, CrossAttention(dim, context_dim, heads, dim_head)),
+            PreNorm(dim, FeedForward(dim, mlp_dim))]) for _ in range(depth))
+
+
+class TransformerDecoder(nn.Module):
+    """One token (``num_tokens=1``, a zero token of ``token_dim=1``)
+    through ``depth`` layers of self-attention, cross-attention to the
+    context and a feed-forward network, pre-norm, float32 stream."""
+
+    def __init__(self, dim: int = 1024, depth: int = 6, heads: int = 8,
+                 dim_head: int = 64, mlp_dim: int = 1024,
+                 context_dim: int = 1280):
+        super().__init__()
+        self.to_token_embedding = nn.Linear(1, dim)
+        self.pos_embedding = nn.Parameter(torch.zeros(1, 1, dim))
+        self.transformer = TransformerCrossAttn(dim, depth, heads, dim_head,
+                                                mlp_dim, context_dim)
+
+    def forward(self, token: torch.Tensor,
+                context: torch.Tensor) -> torch.Tensor:
+        x = _linear(self.to_token_embedding, token) + self.pos_embedding
+        for sa, ca, ff in self.transformer.layers:
+            x = x + sa(x)
+            x = x + ca(x, context=context)
+            x = x + ff(x)
+        return x
+
+
+class HMR2Head(nn.Module):
+    """4D-Humans' ``SMPLTransformerDecoderHead``: (B, tokens, context_dim)
+    encoder tokens -> ``HMROutput``."""
+
+    def __init__(self, mean_params: np.ndarray, dim: int = 1024,
+                 depth: int = 6, heads: int = 8, dim_head: int = 64,
+                 mlp_dim: int = 1024, context_dim: int = 1280):
+        super().__init__()
+        self.transformer = TransformerDecoder(dim, depth, heads, dim_head,
+                                              mlp_dim, context_dim)
+        self.decpose = nn.Linear(dim, NPOSE)
+        self.decshape = nn.Linear(dim, 10)
+        self.deccam = nn.Linear(dim, 3)
+        mean = torch.as_tensor(np.asarray(mean_params, np.float32))
+        pose = mean[:NPOSE].view(N_JOINTS, 3, 2).transpose(1, 2)
+        for name, value in zip(MEAN_KEYS, (pose.reshape(1, NPOSE),
+                                           mean[NPOSE:NPOSE + 10],
+                                           mean[NPOSE + 10:NPOSE + 13])):
+            self.register_buffer(name, value.reshape(1, -1).clone())
+
+    def forward(self, tokens: torch.Tensor) -> HMROutput:
+        with span("hmr2.head"):
+            B = tokens.shape[0]
+            dtype = self.transformer.to_token_embedding.weight.dtype
+            token = torch.zeros((B, 1, 1), dtype=torch.float32,
+                                device=tokens.device)
+            h = self.transformer(token, tokens.to(dtype))[:, 0]
+            pose = self.decpose(h) + self.init_body_pose
+            shape = self.decshape(h) + self.init_betas
+            cam = self.deccam(h) + self.init_cam
+            pose6d = pose.view(B, N_JOINTS, 2, 3).transpose(2, 3).reshape(
+                B, NPOSE)
+            rotmats = rot6d_to_rotmat(pose6d.view(B, N_JOINTS, 6))
+            return HMROutput(rotmats=rotmats, shape=shape, cam=cam,
+                             pose6d=pose6d)
+
+
+class HMR2(nn.Module):
+    """HMR 2.0.  ``mean_params``: (144 + 10 + 3,) the regressor's start,
+    the 6D pose in the port's layout (``hmr.identity_mean_params``)."""
+
+    def __init__(self, mean_params: np.ndarray, image_size: int = 256,
+                 crop_width: int = 192, patch_size: int = 16,
+                 dim: int = 1280, depth: int = 32, heads: int = 16,
+                 mlp_dim: int = 5120, dec_dim: int = 1024,
+                 dec_depth: int = 6, dec_heads: int = 8,
+                 dec_dim_head: int = 64, dec_mlp_dim: int = 1024):
+        super().__init__()
+        self.image_size = image_size
+        self.backbone = ViTH(image_size, crop_width, patch_size, dim, depth,
+                             heads, mlp_dim)
+        self.smpl_head = HMR2Head(mean_params, dec_dim, dec_depth,
+                                  dec_heads, dec_dim_head, dec_mlp_dim, dim)
+
+    def forward(self, images: torch.Tensor) -> HMROutput:
+        """images: (B, image_size, image_size, 3) NHWC, normalised."""
+        if tuple(images.shape[1:]) != (self.image_size, self.image_size, 3):
+            raise ValueError(f"HMR2 takes (B, {self.image_size}, "
+                             f"{self.image_size}, 3) images, got "
+                             f"{tuple(images.shape)}")
+        return self.smpl_head(self.backbone(images))
+
+
+# -- weights ----------------------------------------------------------------
+@torch.no_grad()
+def init_weights(model: HMR2, seed: int = 0) -> None:
+    """Seeded initialisation on the CPU generator, so a seed gives the same
+    weights on every device: ViTPose's for the encoder (Linears truncated
+    normal std 0.02 with zero bias, LayerNorm (1, 0), ``pos_embed``
+    truncated normal std 0.02, the patch convolution PyTorch's default),
+    PyTorch's defaults for the decoder (``INIT_DECODER_XAVIER`` is off,
+    ``pos_embedding`` standard normal), and the readout xavier-uniform
+    with gain 0.01 and zero bias, as ``hmr.init_weights`` gives the
+    decoders."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def fill(t, draw):
+        t.copy_(draw(torch.empty(t.shape, dtype=torch.float32)))
+
+    def default(m):                      # nn.Linear / nn.Conv2d's own init
+        fan_in = m.weight[0].numel()
+        bound = fan_in ** -0.5
+        fill(m.weight, lambda t: nn.init.kaiming_uniform_(
+            t, a=5 ** 0.5, generator=gen))
+        if m.bias is not None:
+            fill(m.bias, lambda t: nn.init.uniform_(t, -bound, bound,
+                                                    generator=gen))
+
+    vit = model.backbone
+    default(vit.patch_embed.proj)
+    fill(vit.pos_embed, lambda t: nn.init.trunc_normal_(t, std=INIT_STD,
+                                                        generator=gen))
+    for m in vit.modules():
+        if isinstance(m, nn.Linear):
+            fill(m.weight, lambda t: nn.init.trunc_normal_(
+                t, std=INIT_STD, generator=gen))
+            m.bias.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.reset_parameters()
+    head = model.smpl_head
+    for m in head.transformer.modules():
+        if isinstance(m, nn.Linear):
+            default(m)
+        elif isinstance(m, nn.LayerNorm):
+            m.reset_parameters()
+    fill(head.transformer.pos_embedding,
+         lambda t: nn.init.normal_(t, generator=gen))
+    for m in (head.decpose, head.decshape, head.deccam):
+        fill(m.weight, lambda t: nn.init.xavier_uniform_(
+            t, gain=HEAD_GAIN, generator=gen))
+        m.bias.zero_()
+
+
+def to_compute(model: HMR2, dtype: torch.dtype,
+               device: torch.device) -> HMR2:
+    """Move ``model`` to ``device`` with the patch convolution and every
+    Linear of the encoder and the decoder in the compute ``dtype``; the
+    LayerNorms, position embeddings, readout and mean parameters stay
+    float32.  Eval mode."""
+    model.to(device)
+    for part in (model.backbone, model.smpl_head.transformer):
+        for m in part.modules():
+            if isinstance(m, (nn.Linear, nn.Conv2d)):
+                m.to(dtype)
+    return model.eval()
+
+
+def create_hmr2(mean_params: Optional[np.ndarray] = None,
+                dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                device: DeviceLike = "cuda", **widths) -> HMR2:
+    """HMR 2.0 with seeded random weights (:func:`init_weights`), on
+    ``device``, in eval mode.  ``mean_params`` defaults to
+    ``hmr.identity_mean_params()``; ``widths`` are :class:`HMR2`'s
+    size arguments (tests build tiny instances)."""
+    if mean_params is None:
+        mean_params = identity_mean_params()
+    model = HMR2(mean_params, **widths)
+    init_weights(model, seed)
+    return to_compute(model, dtype, resolve(device))
+
+
+def load_reference_state_dict(model: HMR2, state_dict) -> HMR2:
+    """Load 4D-Humans' weights ``{name: array}`` into ``model`` by name:
+    the entries under ``backbone.`` and ``smpl_head.`` (a checkpoint's
+    other modules, such as its discriminator, are not read).  The mean
+    parameters ``smpl_head.init_*`` may be absent; the model then keeps
+    those it was built with.  Each tensor is copied into the model's own,
+    on its device and in its dtype."""
+    sd = {k: (v.detach() if isinstance(v, torch.Tensor)
+              else torch.as_tensor(np.asarray(v)))
+          for k, v in state_dict.items()
+          if k.split(".")[0] in ("backbone", "smpl_head")}
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    missing = [k for k in missing
+               if k not in {"smpl_head." + n for n in MEAN_KEYS}]
+    if missing or unexpected:
+        raise KeyError(f"checkpoint mismatch: missing {missing[:5]}, "
+                       f"unexpected {unexpected[:5]}")
+    return model

@@ -35,12 +35,34 @@ class HMRPredictor:
                  state_dict=None,
                  dtype: torch.dtype = torch.bfloat16,
                  focal_length: float = 5000.0,
-                 img_size: int = 224,
-                 device: DeviceLike = "cuda"):
-        """``state_dict``: this package's HMR weights (e.g. from
-        ``hmr.from_flax_variables``); random weights when None."""
+                 img_size: Optional[int] = None,
+                 device: DeviceLike = "cuda",
+                 arch: str = "hmr_r50",
+                 mean_params: Optional[np.ndarray] = None):
+        """``state_dict``: this package's weights of the regressor (e.g.
+        from ``hmr.from_flax_variables``); random weights when None.
+        ``arch``: "hmr_r50" (HMR, 224^2 crops by default) or "hmr2_vith"
+        (HMR 2.0, ``models/hmr2``, 256^2 crops and no other size).
+        ``mean_params``: the regressor's start (144 + 10 + 3,); by default
+        ``hmr.default_mean_params()`` for HMR and
+        ``hmr.identity_mean_params()`` for HMR 2.0."""
         self.device = resolve(device)
-        self.model = hmr_lib.create_hmr(dtype=dtype, device=self.device)
+        self.arch = arch
+        if arch == "hmr2_vith":
+            from tpubody_torch.models import hmr2 as hmr2_lib
+
+            self.model = hmr2_lib.create_hmr2(mean_params, dtype=dtype,
+                                              device=self.device)
+            if img_size not in (None, self.model.image_size):
+                raise ValueError(f"img_size={img_size}: HMR 2.0 takes "
+                                 f"{self.model.image_size}^2 crops")
+            img_size = self.model.image_size
+        elif arch == "hmr_r50":
+            self.model = hmr_lib.create_hmr(mean_params, dtype=dtype,
+                                            device=self.device)
+        else:
+            raise ValueError(f"arch={arch!r}: expected 'hmr_r50' or "
+                             f"'hmr2_vith'")
         if state_dict is None:
             print("WARNING: HMR running with RANDOM-INIT weights — load "
                   "a checkpoint (load_torch_checkpoint) for meaningful "
@@ -52,11 +74,11 @@ class HMRPredictor:
             "smpl", n_joints=24, n_verts=6890, seed=0)
         self.smpl = smpl.to(self.device)
         self.focal_length = focal_length
-        self.img_size = img_size
+        self.img_size = img_size or 224
 
     @torch.inference_mode()
     def __call__(self, images) -> HMRInferenceResult:
-        """images: (B, 224, 224, 3) normalised float32."""
+        """images: (B, img_size, img_size, 3) normalised float32."""
         images = torch.as_tensor(images, dtype=torch.float32,
                                  device=self.device)
         out = self.model(images)
@@ -85,11 +107,18 @@ class HMRPredictor:
         return self(torch.as_tensor(batch, dtype=torch.float32))
 
     def load_torch_checkpoint(self, path: str) -> None:
-        """Load a reference torch HMR checkpoint.  The file is unpickled:
-        load only checkpoints from a trusted source."""
+        """Load a reference torch checkpoint: SPIN's HMR, or for HMR 2.0
+        4D-Humans' (a Lightning checkpoint's ``state_dict``).  The file is
+        unpickled: load only checkpoints from a trusted source."""
         sd = torch.load(path, map_location="cpu", weights_only=False)
-        if isinstance(sd, dict) and "model" in sd:
-            sd = sd["model"]
+        for key in ("model", "state_dict"):
+            if isinstance(sd, dict) and key in sd:
+                sd = sd[key]
         if hasattr(sd, "state_dict"):
             sd = sd.state_dict()
-        hmr_lib.load_reference_state_dict(self.model, sd)
+        if self.arch == "hmr2_vith":
+            from tpubody_torch.models import hmr2 as hmr2_lib
+
+            hmr2_lib.load_reference_state_dict(self.model, sd)
+        else:
+            hmr_lib.load_reference_state_dict(self.model, sd)

@@ -115,14 +115,27 @@ class HMRSMPLStep:
         return verts, out.cam
 
 
+ARCHS = ("hmr_r50", "hmr2_vith")
+
+
 def hmr_smpl_step(dtype: torch.dtype = torch.bfloat16, n_joints: int = 24,
                   n_verts: int = 6890, stem: str = "conv7",
-                  image_size: int = 224, quantize: bool = False,
-                  calib_images=None,
-                  device: DeviceLike = "cuda") -> HMRSMPLStep:
+                  image_size: Optional[int] = None, quantize: bool = False,
+                  calib_images=None, device: DeviceLike = "cuda",
+                  arch: str = "hmr_r50",
+                  mean_params: Optional[np.ndarray] = None) -> HMRSMPLStep:
     """The flagship serving step: images -> (posed verts, weak-persp cam),
-    HMR (seeded random weights) then the body model's batched LBS, which
-    on CUDA is the fused LBS kernel.
+    a regressor (seeded random weights) then the body model's batched LBS,
+    which on CUDA is the fused LBS kernel.
+
+    ``arch``: "hmr_r50", HMR (ResNet-50 + IEF, ``models/hmr``; ``stem``
+    picks its first convolution), or "hmr2_vith", HMR 2.0 (ViT-H/16 and a
+    cross-attention decoder, ``models/hmr2``), which takes 256^2 images.
+    ``image_size`` defaults to the architecture's (HMR 2.0 takes no
+    other).  ``mean_params``: the regressor's start (144 + 10 + 3,), the
+    6D pose as ``rot6d_to_rotmat`` reads it; by default
+    ``hmr.default_mean_params()`` (``tpubody``'s) for HMR and
+    ``hmr.identity_mean_params()`` for HMR 2.0.
 
     ``quantize=True`` serves the int8 PTQ backbone (``models/hmr_quant``:
     the HMR built in float32, BatchNorm folded, per-channel weight and
@@ -133,9 +146,26 @@ def hmr_smpl_step(dtype: torch.dtype = torch.bfloat16, n_joints: int = 24,
     from tpubody_torch.models import hmr as hmr_lib
     from tpubody_torch.models import params as params_lib
 
+    if arch not in ARCHS:
+        raise ValueError(f"arch={arch!r}: expected one of {ARCHS}")
+    if quantize and arch != "hmr_r50":
+        raise NotImplementedError(
+            f"quantize=True: the int8 path (models/hmr_quant) quantizes "
+            f"HMR's ResNet-50 only, not {arch}")
     dev = resolve(device)
-    model = hmr_lib.create_hmr(dtype=torch.float32 if quantize else dtype,
-                               stem=stem, device=dev)
+    if arch == "hmr2_vith":
+        from tpubody_torch.models import hmr2 as hmr2_lib
+
+        model = hmr2_lib.create_hmr2(mean_params, dtype=dtype, device=dev)
+        if image_size not in (None, model.image_size):
+            raise ValueError(f"image_size={image_size}: HMR 2.0 takes "
+                             f"{model.image_size}^2 images")
+        image_size = model.image_size
+    else:
+        image_size = image_size or 224
+        model = hmr_lib.create_hmr(
+            mean_params, dtype=torch.float32 if quantize else dtype,
+            stem=stem, device=dev)
     body = params_lib.load_or_synthetic(
         "smpl", n_joints=n_joints, n_verts=n_verts, seed=0,
         warn=n_verts == 6890, device=dev)
@@ -147,7 +177,8 @@ def hmr_smpl_step(dtype: torch.dtype = torch.bfloat16, n_joints: int = 24,
                 scale=0.5, size=(4, image_size, image_size, 3)).astype(
                     np.float32)
         model = hmr_quant.QuantizedHMR(
-            hmr_quant.quantize_hmr(model, calib_images))
+            hmr_quant.quantize_hmr(model, calib_images),
+            mean_params=mean_params)
     return HMRSMPLStep(model, body, dev, image_size)
 
 
