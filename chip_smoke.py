@@ -294,6 +294,22 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                of the range), scale_and_crop(host=False), unpose at 512
                frames x 6890 vertices (1e-4, and its round trip),
                save_npz and write_obj from tensors on the card.
+  28. layernorm — add_layernorm (csrc/add_layernorm.cu): one HMR 2.0
+               step (hmr_smpl_step(arch="hmr2_vith"), the cell's path) at
+               512 frames of 256^2, the counters zeroed just before it,
+               must launch it 64 times (the kernel line's launches, and
+               launches_hmr2 for the others).  Then at the encoder's
+               shape, 98,304 tokens of 1280 (512 frames of 192), a bf16
+               branch, in the step's two forms, each held to its plain
+               version: bf16 output with x + branch kept (x + branch
+               bit-equal, the output within a bf16 ulp of the largest
+               magnitude and unequal on under 0.1% of elements) and the
+               last block's float32 output without x + branch (within
+               2e-6 of the largest magnitude).  Both timed by CUDA
+               events, beside the byte bound (1.51 GB at 3.35 TB/s) and
+               the eager add + F.layer_norm + cast on the same inputs,
+               its plain version, as library_ms (the kernel line's sixth
+               entry).
 
 It then prints the whole script's time, the kernel line (each kernel with the card's name and power
 limit), the card's name and power limit, and, last,
@@ -301,7 +317,7 @@ limit), the card's name and power limit, and, last,
 ``--phases a,b`` runs a subset (names: lbs, serve, bench, raster, video,
 oracle, vtiming, zbuffer, reconstruct, rtiming, stage, backbone, fit,
 fitserve, ftiming, rwhole, demo, train, remat, pose2d, asf, quant, mesh,
-multihost, closure, and the extra
+multihost, closure, layernorm, and the extra
 vprofile: a torch.profiler pass over the video path) and prints no result
 line: a development aid.
 """
@@ -3858,6 +3874,115 @@ def requant_timing(qp, dev):
     }
 
 
+LN_FRAMES = 512           # phase 28: the HMR 2.0 cell's batch
+LN_TOKENS = LN_FRAMES * 192  # the encoder's tokens at that batch
+LN_DIM = 1280
+LN_F32_BAR = 2e-6          # float32 output: of its largest magnitude
+
+
+def hmr2_step_launches(dev):
+    """One HMR 2.0 step (hmr_smpl_step(arch="hmr2_vith"), the cell's path)
+    at LN_FRAMES frames of 256^2, the counters zeroed just before it ->
+    the launches of that step."""
+    import torch
+
+    from tpubody_torch import native
+    from tpubody_torch.pipelines import serving
+
+    step = serving.hmr_smpl_step(arch="hmr2_vith", device=dev)
+    images = torch.randn((LN_FRAMES, 256, 256, 3), device=dev,
+                         generator=torch.Generator(dev).manual_seed(28))
+    native.reset_launches()
+    verts, cam = step(images)
+    torch.cuda.synchronize()
+    launches = dict(native.LAUNCHES)
+    if not (torch.isfinite(verts).all() and torch.isfinite(cam).all()):
+        raise RuntimeError("non-finite HMR 2.0 output")
+    del step, images, verts, cam
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_layernorm(dev):
+    """add_layernorm on the HMR 2.0 step (its launches), then at the main
+    path's shape in both of the step's forms, each held to its plain
+    version, and timed beside its byte bound and the eager chain -> (the
+    kernel line's entry, the step's launches)."""
+    import torch
+
+    from tpubody_torch import native
+    from tpubody_torch.models import hmr2
+
+    step_launches = hmr2_step_launches(dev)
+    M, D, bf16 = LN_TOKENS, LN_DIM, torch.bfloat16
+    g = torch.Generator(dev).manual_seed(20)
+    x = torch.randn(M, D, generator=g, device=dev) * 2 + 0.5
+    branch = torch.randn(M, D, generator=g, device=dev).to(bf16)
+    norm = torch.nn.LayerNorm(D, eps=hmr2.ENCODER_EPS, device=dev)
+    res = {"name": "add_layernorm", "route": "cuda",
+           "source": "tpubody_torch/csrc/add_layernorm.cu", "replaces": None,
+           "shape": {"tokens": M, "dim": D, "branch": "bf16", "out": "bf16"},
+           "bound_by": "bytes", "launches": step_launches["add_layernorm"]}
+    if res["launches"] != 64:
+        raise RuntimeError(f"the HMR 2.0 step launched add_layernorm "
+                           f"{res['launches']} times, not 64")
+    with torch.no_grad():
+        norm.weight.normal_(1.0, 0.1, generator=g)
+        norm.bias.normal_(0.0, 0.1, generator=g)
+        args = (x, branch, norm, bf16)
+        # The blocks' form: bf16 output, x + branch kept.
+        before = native.LAUNCHES["add_layernorm"]
+        got_x, got_h = hmr2.add_layernorm(*args)
+        want_x, want_h = hmr2.add_layernorm_reference(*args)
+        torch.cuda.synchronize()
+        diff = (got_h.float() - want_h.float()).abs()
+        res["max_diff"] = float(diff.max())
+        res["unequal_share"] = float((diff > 0).float().mean())
+        ulp = 2.0 ** (int(np.floor(np.log2(float(want_h.float().abs()
+                                                     .max())))) - 7)
+        if (native.LAUNCHES["add_layernorm"] != before + 1
+                or not torch.equal(got_x, want_x)
+                or res["max_diff"] > ulp or res["unequal_share"] >= 1e-3):
+            raise RuntimeError(f"add_layernorm differs from its plain "
+                               f"version: {res}")
+        del got_x, got_h, want_x, want_h, diff
+        # The last block's form: float32 output for last_norm, no x_new.
+        none, got_h = hmr2.add_layernorm(x, branch, norm, torch.float32,
+                                         keep_x=False)
+        _, want_h = hmr2.add_layernorm_reference(x, branch, norm,
+                                                 torch.float32, keep_x=False)
+        torch.cuda.synchronize()
+        res["last_block_max_diff"] = float((got_h - want_h).abs().max())
+        bar = LN_F32_BAR * float(want_h.abs().max())
+        if (none is not None or got_h.dtype != torch.float32
+                or native.LAUNCHES["add_layernorm"] != before + 2
+                or not res["last_block_max_diff"] <= bar):
+            raise RuntimeError(f"add_layernorm's float32 form without "
+                               f"x_new differs from its plain version: "
+                               f"{res['last_block_max_diff']} (bar {bar})")
+        del got_h, want_h
+        res["kernel_ms"] = time_ms(lambda: hmr2.add_layernorm(*args), 50, 5)
+        res["last_block_ms"] = time_ms(
+            lambda: hmr2.add_layernorm(x, branch, norm, torch.float32,
+                                       keep_x=False), 50, 5)
+        res["library_ms"] = time_ms(
+            lambda: hmr2.add_layernorm_reference(*args), 20, 3)
+    nbytes = M * D * (4 + 2 + 4 + 2)
+    res.update(ms=res["kernel_ms"], plain_ms=res["library_ms"],
+               gb=nbytes / 1e9, bound_ms=nbytes / PEAK_BYTES * 1e3)
+    res["share"] = res["bound_ms"] / res["kernel_ms"]
+    log(f"  HMR 2.0 step at {LN_FRAMES} frames: launches {step_launches}")
+    log(f"  add_layernorm at {M} x {D} (bf16 branch and output, "
+        f"{res['gb']:.3f} GB): {res['kernel_ms']:.4f} ms, bound "
+        f"{res['bound_ms']:.4f} ms (share {res['share']:.3f}), eager chain "
+        f"{res['library_ms']:.4f} ms; max diff {res['max_diff']:.3g}, "
+        f"unequal share {res['unequal_share']:.3g}; float32 output without "
+        f"x_new {res['last_block_ms']:.4f} ms, max diff "
+        f"{res['last_block_max_diff']:.3g}")
+    log(json.dumps({"layernorm": res, "card": card_line()}))
+    return res, step_launches
+
+
 def span_split(fn, iters):
     """Run ``fn`` ``iters`` times under ``torch.profiler`` -> {span name:
     device ms a call} from the program's own spans
@@ -4349,7 +4474,7 @@ ALL_PHASES = ("lbs", "serve", "bench", "raster", "video", "oracle", "vtiming",
               "zbuffer", "reconstruct", "rtiming", "stage", "backbone",
               "fit", "fitserve", "ftiming", "rwhole", "demo", "train",
               "remat", "pose2d", "asf", "quant", "mesh", "multihost",
-              "closure")
+              "closure", "layernorm")
 EXTRA_PHASES = ("vprofile",)
 
 
@@ -4576,6 +4701,14 @@ def main() -> int:
                 k["launches_closure"] = closure["launches"][k["name"]]
         finally:
             shutil.rmtree(closure_dir, ignore_errors=True)
+
+    if "layernorm" in phases:
+        log("phase 28: add_layernorm on the HMR 2.0 step and at its "
+            "encoder's shape")
+        ln, hmr2_launches = phase_layernorm(dev)
+        for k in kernels:
+            k["launches_hmr2"] = hmr2_launches[k["name"]]
+        kernels.append(ln)
 
     log(f"chip_smoke: the whole script took "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -31,6 +31,13 @@ one-token stream in bf16); the readout and the pose state are float32, as
 ``HMR.ief`` keeps them.  The encoder's tokens are cast to ``dtype`` once
 for the six cross-attentions, which round them the same way each.
 
+The encoder runs each residual add together with the LayerNorm after it
+(``norm2``, the next block's ``norm1``, or ``last_norm``) and the cast of
+that LayerNorm's output to the next Linear's dtype: one
+:func:`add_layernorm` (``csrc/add_layernorm.cu`` on the card), so
+``ViTH.forward`` carries the stream and its normalised view from block to
+block and the first ``norm1`` alone runs eagerly.
+
 The 6D layout: 4D-Humans reads a joint's 6 numbers as (2, 3), the two
 columns one after the other; the port's ``rot6d_to_rotmat`` reads (3, 2).
 The head keeps the published parameters and buffers as they are
@@ -49,13 +56,15 @@ norm2, mlp.fc1, mlp.fc2}``, ``backbone.last_norm``,
 """
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpubody_torch import native
 from tpubody_torch.core.rotations import rot6d_to_rotmat
 from tpubody_torch.device import DeviceLike, resolve
 from tpubody_torch.models.hmr import NPOSE, HMROutput, identity_mean_params
@@ -68,6 +77,7 @@ DECODER_EPS = 1e-5
 INIT_STD = 0.02        # ViTPose's truncated normal for the encoder
 HEAD_GAIN = 0.01       # the readout's xavier gain, as hmr.init_weights
 MEAN_KEYS = ("init_body_pose", "init_betas", "init_cam")
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -125,6 +135,75 @@ class Mlp(nn.Module):
         return self.fc2(self.act(_linear(self.fc1, x)))
 
 
+def add_layernorm_reference(x: torch.Tensor, branch: torch.Tensor,
+                            norm: nn.LayerNorm, out_dtype: torch.dtype,
+                            keep_x: bool = True
+                            ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """The plain version of :func:`add_layernorm`: the eager chain, in its
+    order (the add, in float32 by type promotion, ``norm``, the cast)."""
+    x = x + branch
+    h = norm(x).to(out_dtype)
+    return (x if keep_x else None), h
+
+
+def add_layernorm(x: torch.Tensor, branch: torch.Tensor, norm: nn.LayerNorm,
+                  out_dtype: torch.dtype, keep_x: bool = True
+                  ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """A residual add and the LayerNorm after it: float32 ``x`` (..., D)
+    and ``branch`` (..., D) -> (``x + branch`` float32, or None unless
+    ``keep_x``; ``norm`` of it in ``out_dtype``).  The statistics are
+    float32.
+
+    On CUDA one launch of ``csrc/add_layernorm.cu``: ``branch`` bf16 or
+    float32, ``out_dtype`` bf16 or float32, D a multiple of 8 up to 2048,
+    contiguous 16-byte aligned tensors and no autograd.  Its ``x + branch``
+    has the bits of :func:`add_layernorm_reference`'s, its normalised
+    output those of another float32 summation order.  Anything else it
+    does not take raises RuntimeError.  The CPU runs
+    :func:`add_layernorm_reference`."""
+    if x.device.type == "cpu":
+        return add_layernorm_reference(x, branch, norm, out_dtype, keep_x)
+    D, dev = x.shape[-1], x.device
+    M = x.numel() // max(D, 1)
+    if (dev.type != "cuda" or D % 8 or not 8 <= D <= 2048 or M >= 2 ** 31
+            or out_dtype not in _KERNEL_DTYPES):
+        raise RuntimeError(
+            f"add_layernorm takes x (..., D) on CUDA or the CPU, D a multiple "
+            f"of 8 up to 2048, and a bf16 or float32 output; got "
+            f"{tuple(x.shape)} on {dev}, {out_dtype} output")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, branch, norm.weight, norm.bias)):
+        raise RuntimeError("add_layernorm has no backward on CUDA: call it "
+                           "under torch.no_grad() or inference mode")
+    f32 = (torch.float32,)
+    for name, t, shape, dtypes in (("x", x, x.shape, f32),
+                                   ("branch", branch, x.shape, _KERNEL_DTYPES),
+                                   ("weight", norm.weight, (D,), f32),
+                                   ("bias", norm.bias, (D,), f32)):
+        if (t.device != dev or tuple(t.shape) != tuple(shape)
+                or t.dtype not in dtypes):
+            raise RuntimeError(f"{name}: {t.dtype} {tuple(t.shape)} on "
+                               f"{t.device}, expected one of {dtypes} "
+                               f"{tuple(shape)} on {dev}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise RuntimeError(f"{name} is not contiguous and 16-byte "
+                               f"aligned")
+    x_out = torch.empty_like(x) if keep_x else None
+    h = torch.empty(x.shape, dtype=out_dtype, device=dev)
+    lib = native.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.tpubody_add_layernorm(
+            x.data_ptr(), branch.data_ptr(),
+            int(branch.dtype == torch.bfloat16), norm.weight.data_ptr(),
+            norm.bias.data_ptr(), norm.eps,
+            None if x_out is None else x_out.data_ptr(), h.data_ptr(),
+            int(out_dtype == torch.bfloat16), M, D, ctypes.c_void_p(stream))
+    native.check(err, "add_layernorm launch")
+    native.LAUNCHES["add_layernorm"] += 1
+    return x_out, h
+
+
 class Block(nn.Module):
     def __init__(self, dim: int, heads: int, mlp_dim: int):
         super().__init__()
@@ -132,12 +211,6 @@ class Block(nn.Module):
         self.attn = Attention(dim, heads)
         self.norm2 = nn.LayerNorm(dim, eps=ENCODER_EPS)
         self.mlp = Mlp(dim, mlp_dim)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        with span("hmr2.attention"):
-            x = x + self.attn(self.norm1(x))
-        with span("hmr2.mlp"):
-            return x + self.mlp(self.norm2(x))
 
 
 class ViTH(nn.Module):
@@ -161,9 +234,21 @@ class ViTH(nn.Module):
             lo = (self.image_size - self.crop_width) // 2
             x = self.patch_embed(images[:, :, lo:lo + self.crop_width])
             x = x + (self.pos_embed[:, 1:] + self.pos_embed[:, :1])
-            for block in self.blocks:
-                x = block(x)
-            return self.last_norm(x)
+            # Each half ends with its residual add and the LayerNorm after
+            # it (norm2, the next block's norm1, or last_norm in float32) in
+            # one add_layernorm; the last drops the stream.
+            first = self.blocks[0]
+            h = first.norm1(x).to(first.attn.qkv.weight.dtype)
+            for block, nxt in zip(self.blocks, [*self.blocks[1:], None]):
+                with span("hmr2.attention"):
+                    x, h = add_layernorm(x, block.attn(h), block.norm2,
+                                         block.mlp.fc1.weight.dtype)
+                with span("hmr2.mlp"):
+                    if nxt is None:
+                        return add_layernorm(x, block.mlp(h), self.last_norm,
+                                             torch.float32, keep_x=False)[1]
+                    x, h = add_layernorm(x, block.mlp(h), nxt.norm1,
+                                         nxt.attn.qkv.weight.dtype)
 
 
 # -- the SMPL head: 4D-Humans' TransformerDecoder and readout -------------
@@ -292,7 +377,11 @@ class HMR2Head(nn.Module):
 
 class HMR2(nn.Module):
     """HMR 2.0.  ``mean_params``: (144 + 10 + 3,) the regressor's start,
-    the 6D pose in the port's layout (``hmr.identity_mean_params``)."""
+    the 6D pose in the port's layout (``hmr.identity_mean_params``).
+
+    Inference only on CUDA: the encoder's :func:`add_layernorm` has no
+    backward there, and a forward pass that records gradients raises
+    RuntimeError (the CPU's eager chain has one)."""
 
     def __init__(self, mean_params: np.ndarray, image_size: int = 256,
                  crop_width: int = 192, patch_size: int = 16,
@@ -386,7 +475,9 @@ def create_hmr2(mean_params: Optional[np.ndarray] = None,
     """HMR 2.0 with seeded random weights (:func:`init_weights`), on
     ``device``, in eval mode.  ``mean_params`` defaults to
     ``hmr.identity_mean_params()``; ``widths`` are :class:`HMR2`'s
-    size arguments (tests build tiny instances)."""
+    size arguments (tests build tiny instances).  On CUDA the model
+    takes no autograd (see :class:`HMR2`): run it under ``torch.no_grad()``
+    or inference mode."""
     if mean_params is None:
         mean_params = identity_mean_params()
     model = HMR2(mean_params, **widths)

@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Launch counts per kernel name, bumped by the wrappers.
 LAUNCHES: Dict[str, int] = {"fused_lbs": 0, "fused_raster": 0, "zbuffer": 0,
-                            "fused_stage": 0, "int8_requant": 0}
+                            "fused_stage": 0, "int8_requant": 0,
+                            "add_layernorm": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -152,6 +153,10 @@ def library() -> ctypes.CDLL:
         lib.tpubody_fused_stage_launches.restype = ci
         lib.tpubody_int8_requant.argtypes = [vp] * 10 + [ci] * 3 + [vp]
         lib.tpubody_int8_requant.restype = ci
+        lib.tpubody_add_layernorm.argtypes = [vp, vp, ci, vp, vp,
+                                              ctypes.c_float, vp, vp, ci, ci,
+                                              ci, vp]
+        lib.tpubody_add_layernorm.restype = ci
         lib.tpubody_cuda_error_string.argtypes = [ci]
         lib.tpubody_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
