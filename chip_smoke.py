@@ -23,8 +23,6 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                just after, and every kernel of the path must have
                launched; the fp32 step on the card is also held to the
                same step on the CPU;
-  4. bench   — tpubody_torch.bench's flagship step at batch 512: frames/s
-               and the per-layer split, from CUDA events after warm-up;
   5. timing  — fused_lbs in both precisions against one PyTorch call
                computing the same contractions (timed in turns in one
                run), its plain version and its bound;
@@ -142,8 +140,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                library, kernel).  Then tpubody_torch.bench.fused_stage(1)
                and (2)
                (kernel and library ms at batch 512, in one run), the bound,
-               bench.backbone_split of the flagship
-               step, and the s2d stem against conv7 (fp32 within 1e-4, and
+               and the s2d stem against conv7 (fp32 within 1e-4, and
                both stems' ms in bf16).
 
   15. fit     — the fitting path (no kernel of the port lies on it: its
@@ -628,17 +625,6 @@ def phase_serve(dev):
     if err_hmr > CPU_HMR_ATOL or err_lbs > CPU_VERT_ATOL:
         raise RuntimeError("the card disagrees with the CPU reference")
     return launches, snap
-
-
-def phase_bench(dev):
-    from tpubody_torch import bench
-
-    res = bench.run(batch=512, iters=20, device=dev)
-    log(f"  bench: {res['value']:.1f} frames/s at batch 512"
-        f" ({res['step_ms']:.3f} ms/step); split ms {res['split_ms']};"
-        f" backbone split ms {res['backbone_split_ms']}")
-    log(json.dumps(res))
-    return res
 
 
 def phase_timing(body, launches, main_err):
@@ -2425,8 +2411,8 @@ def hold_to_plain(x_nhwc, y, fused, name):
 
 def phase_backbone(dev):
     """The fused stage on the serving model's activations and weights at
-    batch 512, its times beside the library's, and the backbone's split
-    -> the kernel line's entry."""
+    batch 512 and its times beside the library's -> the kernel line's
+    entry."""
     import torch
 
     from tpubody_torch import bench, native
@@ -2560,12 +2546,6 @@ def phase_backbone(dev):
         log(f"  stage {s}: {stages[str(s)]}")
     stages = {k: stages[k] for k in sorted(stages)}
 
-    with torch.inference_mode():
-        split = bench.backbone_split(bench.make_step(dev), images, 10)
-    log(f"  backbone split at batch {B}, ms: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
-        + f"; sum {sum(split.values()):.3f}")
-
     # the space-to-depth stem against the direct one, same state dict
     m7 = hmr.create_hmr(dtype=torch.float32, device=dev, seed=3)
     ms2d = hmr.create_hmr(dtype=torch.float32, device=dev, seed=3, stem="s2d")
@@ -2586,7 +2566,7 @@ def phase_backbone(dev):
     if stem_err > STEM_ATOL or feat_err > STEM_ATOL:
         raise RuntimeError("the s2d stem disagrees with conv7")
     log(json.dumps({"backbone": {
-        "batch": B, "split_ms": split, "stem_ms": stem_ms,
+        "batch": B, "stem_ms": stem_ms,
         "fused_vs_library_rel": list(rels.values()), "stages": stages}}))
 
     main = stages["1"]
@@ -4470,7 +4450,7 @@ def phase_closure(dev, workdir, avatar=None):
     return out
 
 
-ALL_PHASES = ("lbs", "serve", "bench", "raster", "video", "oracle", "vtiming",
+ALL_PHASES = ("lbs", "serve", "raster", "video", "oracle", "vtiming",
               "zbuffer", "reconstruct", "rtiming", "stage", "backbone",
               "fit", "fitserve", "ftiming", "rwhole", "demo", "train",
               "remat", "pose2d", "asf", "quant", "mesh", "multihost",
@@ -4529,9 +4509,6 @@ def main() -> int:
     if "serve" in phases:
         log("phase 3: main path through InferenceServer -> hmr_smpl_step")
         launches, _ = phase_serve(dev)
-    if "bench" in phases:
-        log("phase 4: throughput")
-        phase_bench(dev)
     if "lbs" in phases and "serve" in phases:
         log("phase 5: fused_lbs timing")
         kernels.append(phase_timing(body, launches, main_err))

@@ -312,10 +312,3 @@ def test_stats_snapshot_percentiles():
     assert snap["requests"] == 3 and snap["padded_rows"] == 1
     assert snap["latency_p50_ms"] == pytest.approx(2.0)
     assert snap["latency_p99_ms"] == pytest.approx(3.0)
-
-
-def test_bench_refuses_the_cpu():
-    from tpubody_torch import bench
-
-    with pytest.raises(RuntimeError):
-        bench.run(batch=1, iters=1, device="cpu")

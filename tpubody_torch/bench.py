@@ -1,15 +1,8 @@
-"""Benchmark: batched HMR + SMPL inference throughput on one GPU.
+"""Timings of two paths on one GPU: the fused residual stage and fitting.
+The serving step's throughput is the repository's benchmark
+(``python3 -m benchmark.run``).
 
-The port's counterpart of the repository's ``bench.py``: images -> HMR
-(ResNet-50 + 3-step IEF, bf16 backbone) -> batched SMPL LBS through the
-fused CUDA kernel -> (B, 6890, 3) posed meshes, at batch 512.  Prints ONE
-JSON line ``{"metric", "value", "unit", "vs_baseline", "lbs_path",
-"batch", "device", "split_ms"}``.  There is no fallback: if the step
-fails, the run fails.
-
-    python -m tpubody_torch.bench [--batch 512] [--iters 30]
-
-``--fit N [--sequence --block B]`` measures instead the fitting path
+``--fit N [--sequence --block B]`` measures the fitting path
 (the counterpart of ``tools/bench_fit.py``): N frames of seeded poses
 through ``fit.smplify.fit_frames`` at ``FitConfig()`` defaults on the
 6890-vertex, 52-joint seeded SMPLH with 12 PCA hand components, first
@@ -18,10 +11,11 @@ block B, and prints its JSON line (ms/frame, mean final loss, the split
 between the camera stage and the body stages, objective evaluations,
 line-search steps and device-to-host reads).
 
-``--fused-stage {1,2}`` measures instead the fused residual stage
-(``models/fused_resnet.py``, the CUDA kernel ``csrc/fused_stage.cu``)
-against the library's bf16 convolutions on the same stride-1 bottleneck
-chain at the flagship's shapes, and prints its JSON line.
+``--fused-stage {1,2,3,4} [--batch 512] [--iters 30]`` measures the
+fused residual stage (``models/fused_resnet.py``, the CUDA kernel
+``csrc/fused_stage.cu``) against the library's bf16 convolutions on the
+same stride-1 bottleneck chain at the flagship's shapes, and prints its
+JSON line.
 """
 from __future__ import annotations
 
@@ -36,9 +30,7 @@ import torch
 from tpubody_torch.device import DeviceLike, resolve
 
 BATCH = 512
-WARMUP = 3
 ITERS = 30
-TARGET_FPS = 1000.0   # BASELINE.json's frames/sec target
 # The stride-1 bottleneck chains of ResNet-50 at a 224^2 input: (block
 # indices, features, height = width, input channels).  Stage 2's block 0
 # is stride-2 and stays with the library.
@@ -46,7 +38,6 @@ TARGET_FPS = 1000.0   # BASELINE.json's frames/sec target
 STAGE_SHAPES = {1: ((0, 1, 2), 64, 56, 64), 2: ((1, 2, 3), 128, 28, 512),
                 3: ((1, 2, 3, 4, 5), 256, 14, 1024),
                 4: ((1, 2), 512, 7, 2048)}
-BACKBONE_PARTS = ("stem", "layer1", "layer2", "layer3", "layer4", "pool")
 
 
 def make_step(device: DeviceLike = "cuda"):
@@ -61,59 +52,6 @@ def make_step(device: DeviceLike = "cuda"):
     body = params_lib.synthetic(n_joints=24, n_verts=6890, seed=0,
                                 device=dev)
     return HMRSMPLStep(model, body, dev, image_size=224)
-
-
-@torch.inference_mode()
-def layer_split(step, images: torch.Tensor, iters: int) -> Dict[str, float]:
-    """Device ms per step of each layer (backbone, IEF head, LBS prologue,
-    fused_lbs), from CUDA events between the layers, averaged."""
-    from tpubody_torch.core import fused_lbs
-
-    names = ("backbone", "ief_head", "lbs_prologue", "fused_lbs")
-    totals = dict.fromkeys(names, 0.0)
-    layouts = fused_lbs.model_layouts(step.body)
-    for _ in range(iters):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        ev[0].record()
-        xf = step.hmr.backbone(images)
-        ev[1].record()
-        out = step.hmr.ief(xf)
-        ev[2].record()
-        feat, g = fused_lbs.lbs_prologue(layouts, step.body.parents,
-                                         out.rotmats, out.shape,
-                                         pose_is_rotmat=True)
-        ev[3].record()
-        fused_lbs.fused_lbs(layouts, feat, g, None,
-                            "bf16x3")        # forward_batch_verts' default
-        ev[4].record()
-        torch.cuda.synchronize()
-        for i, name in enumerate(names):
-            totals[name] += ev[i].elapsed_time(ev[i + 1])
-    return {k: v / iters for k, v in totals.items()}
-
-
-@torch.inference_mode()
-def backbone_split(step, images: torch.Tensor, iters: int) -> Dict[str, float]:
-    """Device ms per step of the backbone's parts (the stem with its
-    max-pool, the four residual stages, the global average pool), from
-    CUDA events between them, averaged over ``iters`` steps."""
-    bb = step.hmr.backbone
-    totals = dict.fromkeys(BACKBONE_PARTS, 0.0)
-    for _ in range(iters):
-        ev = [torch.cuda.Event(enable_timing=True)
-              for _ in range(len(BACKBONE_PARTS) + 1)]
-        ev[0].record()
-        x = bb.stem(images)
-        ev[1].record()
-        for i in range(4):
-            x = getattr(bb, f"layer{i + 1}")(x)
-            ev[i + 2].record()
-        torch.mean(x, dim=(2, 3))
-        ev[6].record()
-        torch.cuda.synchronize()
-        for i, name in enumerate(BACKBONE_PARTS):
-            totals[name] += ev[i].elapsed_time(ev[i + 1])
-    return {k: v / iters for k, v in totals.items()}
 
 
 @torch.no_grad()
@@ -423,46 +361,6 @@ def fit(n: int = 64, sequence: bool = False, block: int = 1,
     return res
 
 
-@torch.inference_mode()
-def run(batch: int = BATCH, iters: int = ITERS, warmup: int = WARMUP,
-        device: DeviceLike = "cuda") -> dict:
-    """Time the flagship step at ``batch`` with CUDA events after warm-up."""
-    dev = resolve(device)
-    if dev.type != "cuda":
-        raise RuntimeError("the benchmark measures the GPU; device must be "
-                           "CUDA")
-    step = make_step(dev)
-    rng = np.random.default_rng(0)
-    images = torch.as_tensor(
-        rng.normal(size=(batch, 224, 224, 3)).astype(np.float32), device=dev)
-    for _ in range(warmup):
-        step(images)
-    torch.cuda.synchronize(dev)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        verts, cam = step(images)
-    end.record()
-    torch.cuda.synchronize(dev)
-    ms = start.elapsed_time(end) / iters
-    if not (torch.isfinite(verts).all() and torch.isfinite(cam).all()):
-        raise RuntimeError("non-finite output from the flagship step")
-    fps = batch * 1e3 / ms
-    return {
-        "metric": "hmr_smpl_inference_throughput",
-        "value": fps,
-        "unit": "frames/sec/chip",
-        "vs_baseline": fps / TARGET_FPS,
-        "lbs_path": "cuda-fused_lbs",
-        "batch": batch,
-        "step_ms": ms,
-        "device": torch.cuda.get_device_name(dev),
-        "split_ms": layer_split(step, images, max(3, iters // 3)),
-        "backbone_split_ms": backbone_split(step, images, max(3, iters // 3)),
-    }
-
-
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=BATCH)
@@ -470,13 +368,13 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--fused-stage", type=int, choices=tuple(STAGE_SHAPES),
                     default=None,
-                    help="measure the fused residual stage instead")
+                    help="measure the fused residual stage")
     ap.add_argument("--blocks", type=int, default=0,
                     help="fuse only the first N blocks (0 = whole chain)")
     ap.add_argument("--what", default="both",
                     choices=("both", "fused", "library", "parity"))
     ap.add_argument("--fit", type=int, default=None, metavar="N",
-                    help="measure the fitting path on N frames instead")
+                    help="measure the fitting path on N frames")
     ap.add_argument("--sequence", action="store_true",
                     help="with --fit: a chained fit_sequence of N frames")
     ap.add_argument("--block", type=int, default=1,
@@ -486,11 +384,10 @@ def main(argv=None) -> None:
         print(json.dumps(fit(args.fit, args.sequence, args.block,
                              device=args.device)))
         return
-    if args.fused_stage:
-        print(json.dumps(fused_stage(args.fused_stage, args.batch, args.iters,
-                                     args.blocks, args.what, args.device)))
-        return
-    print(json.dumps(run(args.batch, args.iters, device=args.device)))
+    if not args.fused_stage:
+        ap.error("give --fused-stage or --fit")
+    print(json.dumps(fused_stage(args.fused_stage, args.batch, args.iters,
+                                 args.blocks, args.what, args.device)))
 
 
 if __name__ == "__main__":

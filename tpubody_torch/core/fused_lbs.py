@@ -25,7 +25,6 @@ torch ops, only for tensors on the CPU.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -182,18 +181,6 @@ def fused_lbs_reference(basis: torch.Tensor, wT: torch.Tensor,
     return out.contiguous()
 
 
-def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...],
-           device: torch.device, dtype: torch.dtype = torch.float32) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
 def fused_lbs(layouts: LBSLayouts, feat: torch.Tensor, g: torch.Tensor,
               trans: Optional[torch.Tensor] = None,
               precision: str = "bf16x3") -> torch.Tensor:
@@ -215,28 +202,23 @@ def fused_lbs(layouts: LBSLayouts, feat: torch.Tensor, g: torch.Tensor,
     K, V = layouts.basis.shape[1], layouts.basis.shape[2]
     J, F = layouts.wT.shape[0], feat.shape[0]
     KS, JS = _ksteps(K), _ksteps(J)
-    _check("layouts.planes", layouts.planes,
-           (3, _round_up(V, TILE) // 16, 3 * KS + JS, 32, 8), device,
-           torch.bfloat16)
-    _check("feat", feat, (F, K), device)
-    _check("g", g, (F, J, 12), device)
+    f32 = torch.float32
+    native.expect("layouts.planes", layouts.planes,
+                  (3, _round_up(V, TILE) // 16, 3 * KS + JS, 32, 8),
+                  torch.bfloat16, device)
+    native.expect("feat", feat, (F, K), f32, device)
+    native.expect("g", g, (F, J, 12), f32, device)
     if trans is not None:
-        _check("trans", trans, (F, 3), device)
+        native.expect("trans", trans, (F, 3), f32, device)
     out = torch.empty((F, V, 3), dtype=torch.float32, device=device)
     # the frames' planes: hi, lo (and lo2 for "highest"), filled by the kernel
     frm = torch.empty((2 if precision == "bf16x3" else 3,
                        _round_up(F, TILE) // 16, KS + 12 * JS, 32, 8),
                       dtype=torch.bfloat16, device=device)
-    lib = native.library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.tpubody_fused_lbs(
-            layouts.planes.data_ptr(), feat.data_ptr(), g.data_ptr(),
-            frm.data_ptr(), None if trans is None else trans.data_ptr(),
-            out.data_ptr(), F, V, K, J, int(precision == "bf16x3"),
-            ctypes.c_void_p(stream))
-    native.check(err, "fused_lbs launch")
-    native.LAUNCHES["fused_lbs"] += 1
+    native.launch("fused_lbs", "tpubody_fused_lbs", device,
+                  layouts.planes.data_ptr(), feat.data_ptr(), g.data_ptr(),
+                  frm.data_ptr(), None if trans is None else trans.data_ptr(),
+                  out.data_ptr(), F, V, K, J, int(precision == "bf16x3"))
     return out
 
 

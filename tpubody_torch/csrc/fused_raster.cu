@@ -80,13 +80,6 @@
 // The wrapper allocates the outputs; the kernel runs on the caller's
 // stream, allocates nothing, synchronises nothing, and the entry point
 // returns the launch's error.
-//
-// Timing builds: ablate_raster.py compiles this file with one ABLATE_*
-// macro each, which takes a part out: the rejection (every face reaches
-// every warp), the evaluation of the faces that pass it, the bulk copies
-// (the ring still turns), or the epilogue's stores.  Such a build computes
-// wrong values by design and only its time is read.  With no macro
-// defined, the #if lines below change nothing.
 #include "raster_common.cuh"
 
 namespace {
@@ -174,19 +167,11 @@ fused_raster_kernel(const float* __restrict__ table,  // (B, MAXC, CF, G, 3)
         bool keep = false;
         if (fl < CF) {
           const float* q = q0 + fl * row;
-#ifdef ABLATE_REJECT
-          keep = true;
-#else
           keep = !(edge_fails(q[0], q[1], q[2], rect) ||
                    edge_fails(q[3], q[4], q[5], rect) ||
                    edge_fails(q[6], q[7], q[8], rect));
-#endif
         }
         unsigned live = __ballot_sync(0xffffffffu, keep);
-#ifdef ABLATE_EVAL
-        if (live == 0x12345678u) best[0] = (int)live;  // keeps the test alive
-        live = 0;
-#endif
         while (live) {
           const int f = g0 + __ffs(live) - 1;
           live &= live - 1;
@@ -235,7 +220,6 @@ fused_raster_kernel(const float* __restrict__ table,  // (B, MAXC, CF, G, 3)
                                                           lx]);
       const bool covered = key != INT_MAX;
       if (covered ? best[k] != key : rank != 0) continue;
-#ifndef ABLATE_EPILOGUE
       const size_t pix = (size_t)(y0 + k) * W + x;
       win[(size_t)b * plane + pix] = key;
       float* out = attr + (size_t)b * C * plane + pix;
@@ -252,7 +236,6 @@ fused_raster_kernel(const float* __restrict__ table,  // (B, MAXC, CF, G, 3)
       } else {
         for (int ch = 0; ch < C; ++ch) out[(size_t)ch * plane] = 0.0f;
       }
-#endif
     }
   }
   if (ranks > 1) cluster.sync();        // no block leaves while read

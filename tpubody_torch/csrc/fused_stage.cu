@@ -100,15 +100,6 @@
 // The wrapper allocates the output; the kernel runs on the caller's
 // stream, allocates nothing, synchronises nothing, and the entry point
 // returns cudaGetLastError().
-//
-// Timing builds: ablate_fused_stage.py compiles this file with one
-// ABLATE_* macro defined each, which takes a part out (the tensor-core
-// products, the A fragment loads, the loads of x or of the weights, the
-// last epilogue, one of the convolutions), sets the weight ring's depth
-// (-DABLATE_SW=..) or runs the wide route in two launches wherever it
-// could take one (-DABLATE_WIDE_SPLIT).  Such a build may compute wrong
-// values and only its time is read.  With no macro defined, the #if lines
-// change nothing.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -122,11 +113,7 @@ constexpr int kConsumers = 256;
 // Weight ring stages: the most of 4, 3, 2 that the shared memory holds
 // (4 at 256 -> 64 -> 256 without a downsample, 2 at the other widths of
 // ResNet-50's stages 1 and 2).
-#ifdef ABLATE_SW
-constexpr int kSWMax = ABLATE_SW, kSWMin = ABLATE_SW;
-#else
 constexpr int kSWMax = 4, kSWMin = 2;
-#endif
 constexpr int kSXMax = 3;               // x ring stages (barriers for)
 constexpr int kWBytes = 128 * 128;      // weight slice: <= 128 rows x 128 B
 constexpr int kMaxSmem = 232448;        // 227 KB a block
@@ -265,9 +252,6 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 
 // ---- warpgroup products
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-#ifdef ABLATE_FRAGMENTS
-  return;
-#endif
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -306,9 +290,6 @@ __device__ __forceinline__ void wgmma_64x64(float (&d)[32],
                                             const uint32_t (&a)[4],
                                             uint64_t desc,
                                             int accumulate = 1) {
-#ifdef ABLATE_MMA
-  return;
-#endif
   // scale-d = accumulate, scale-a = scale-b = 1, B not transposed
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
@@ -420,12 +401,8 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
     auto put_w = [&](const bf16* src, int rows) {
       if (pt == 0) {
         mbar_wait(empty_w(ws), wph ^ 1);
-#ifdef ABLATE_W_LOADS
-        mbar_arrive(full_w(ws));
-#else
         mbar_expect_tx(full_w(ws), rows * 128);
         bulk_copy(wring + ws * kWBytes, src, rows * 128, full_w(ws));
-#endif
       }
       if (++ws == sw) { ws = 0; wph ^= 1; }
     };
@@ -436,7 +413,6 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
     auto put_x = [&](const bf16* src, int C, int s_first, int nrows,
                      int ks) {
       mbar_wait(empty_x(xs), xph ^ 1);
-#ifndef ABLATE_X_LOADS
       const uint32_t buf = xring + xs * kXBytes;
       for (int r = pt; r < kM; r += 128) {
         const int pix = r < nrows ? pixel_at(s_first + r, B, H, W) : -1;
@@ -449,12 +425,10 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
                      in);
         }
       }
-#endif
       cp_async_arrive(full_x(xs));
       if (++xs == kSX) { xs = 0; xph ^= 1; }
     };
     if constexpr (kMode != kBack) {
-#ifndef ABLATE_CONV1
       for (int nc = 0; nc < ncols; ++nc)
         for (int p = 0; p < passes; ++p)
           for (int ks = 0; ks < ks_in; ++ks) {
@@ -462,18 +436,14 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
                   col_rows(nc));
             put_x(x, Cin, h0 + p * kM, L.h1_rows - p * kM, ks);
           }
-#endif
-#ifndef ABLATE_CONV2
       for (int nc = 0; nc < ncols; ++nc)
         for (int tap = 0; tap < 9; ++tap)
           for (int ks = 0; ks < ks_mid; ++ks)
             put_w(w2 + (size_t)tap * Cmid_p * Cmid_p +
                       ((size_t)nc * ks_mid * 128 + ks * col_rows(nc)) * 64,
                   col_rows(nc));
-#endif
     }
     if constexpr (kMode != kFront) {
-#ifndef ABLATE_CONV3
       for (int nc = 0; nc < nchunks; ++nc) {
         const int rows = min(128, Cout_p - nc * 128);
         for (int ks = 0; ks < ks_mid; ++ks) {
@@ -486,7 +456,6 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
             put_x(x, Cin, s0, kM, ks);
           }
       }
-#endif
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     return;
@@ -724,9 +693,7 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
   };
   auto conv3 = [&](int nc, auto nt_c) {
     constexpr int kNT = decltype(nt_c)::value;
-#ifndef ABLATE_EPILOGUE
     if (!down) fetch_residual(nc * 128);
-#endif
     zero();
     for (int ks = 0; ks < ks_mid; ++ks) {
       if constexpr (kMode == kBack) {
@@ -753,9 +720,6 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
                   Int<kAllTiles>{}, nt_c);
         release_x();
       }
-#ifdef ABLATE_EPILOGUE
-    if (acc[0][0][0] != 12345.0f) return;       // keeps the products alive
-#endif
 #pragma unroll
     for (int n = 0; n < kNT; ++n) {
       const int ch0 = nc * 128 + n * 64;
@@ -800,27 +764,21 @@ bottleneck_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
   };
 
   if constexpr (kMode != kBack) {
-#ifndef ABLATE_CONV1
     for (int nc = 0; nc < ncols; ++nc) {
       if (col_rows(nc) == 128) conv1(nc, Int<2>{}); else conv1(nc, Int<1>{});
     }
-#endif
     consumer_sync();                            // h1 complete
-#ifndef ABLATE_CONV2
     for (int nc = 0; nc < ncols; ++nc) {
       if (col_rows(nc) == 128) conv2(nc, Int<2>{}); else conv2(nc, Int<1>{});
     }
-#endif
   }
   // h2 complete (kFull); rowpix complete (kBack, which has no conv1 whose
   // barrier would order it)
   if constexpr (kMode != kFront) consumer_sync();
   if constexpr (kMode != kFront) {
-#ifndef ABLATE_CONV3
     for (int nc = 0; nc < nchunks; ++nc) {
       if (Cout_p - nc * 128 >= 128) conv3(nc, Int<2>{}); else conv3(nc, Int<1>{});
     }
-#endif
   }
 }
 
@@ -850,11 +808,7 @@ int launch(const void* x, void* y, void* h2, const void* w1, const float* b1,
 // h1 and h2 of a band (C_mid 256 at 14^2 without a downsample: 219,760
 // bytes), else in two.
 inline bool wide_in_one(int W, int cmid_p, bool down) {
-#ifdef ABLATE_WIDE_SPLIT
-  return false;
-#else
   return layout<128, kFull>(W, cmid_p, down).bytes <= kMaxSmem;
-#endif
 }
 
 }  // namespace

@@ -154,12 +154,8 @@ struct Ring {
   __device__ __forceinline__ void put(int i, const void* src) const {
     const int s = i % stages;
     if (i >= stages) mbar_wait(empty(s), ((i / stages) - 1) & 1);
-#ifdef ABLATE_COPIES
-    mbar_arrive(full(s));
-#else
     mbar_expect_tx(full(s), bytes);
     bulk_copy(slot(i), src, bytes, full(s));
-#endif
   }
   // consumer warp: wait for chunk i / release it
   __device__ __forceinline__ void take(int i) const {

@@ -56,9 +56,7 @@
 //
 // The wrapper allocates the output; the kernel runs on the caller's
 // stream, allocates nothing, synchronises nothing, and the entry point
-// returns the launch's error.  Timing builds: ablate_raster.py, with the
-// ABLATE_* macros of fused_raster.cu (no rejection, no evaluation, no
-// copies, no stores).
+// returns the launch's error.
 #include "raster_common.cuh"
 
 namespace {
@@ -129,9 +127,6 @@ zbuffer_kernel(const float4* __restrict__ table,   // (B, T, NC, 640)
       const float4* coef = slots + (i % stages) * kRows;
 #pragma unroll 1
       for (int g0 = 0; g0 < kCF; g0 += 32) {
-#ifdef ABLATE_REJECT
-        unsigned live = 0xffffffffu;
-#else
         const float4 t0 = coef[g0 + lane];
         const float4 t1 = coef[kCF + g0 + lane];
         const float4 t2 = coef[2 * kCF + g0 + lane];
@@ -139,11 +134,6 @@ zbuffer_kernel(const float4* __restrict__ table,   // (B, T, NC, 640)
             0xffffffffu, !(edge_fails(t0.x, t0.y, t0.z, rect) ||
                            edge_fails(t1.x, t1.y, t1.z, rect) ||
                            edge_fails(t2.x, t2.y, t2.z, rect)));
-#endif
-#ifdef ABLATE_EVAL
-        if (live == 0x12345678u) best[0] = (int)live;  // keeps the test alive
-        live = 0;
-#endif
         while (live) {
           const int f = g0 + __ffs(live) - 1;
           live &= live - 1;
@@ -189,9 +179,7 @@ zbuffer_kernel(const float4* __restrict__ table,   // (B, T, NC, 640)
       for (int r = 1; r < ranks; ++r)
         key = min(key,
                   cluster.map_shared_rank(keys, r)[(ly + k) * kTileW + lx]);
-#ifndef ABLATE_EPILOGUE
       out[(size_t)(y0 + k) * W + x] = key;
-#endif
     }
   }
   if (ranks > 1) cluster.sync();        // no block leaves while read

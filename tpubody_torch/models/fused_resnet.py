@@ -365,21 +365,17 @@ def run_stage(x_nhwc: torch.Tensor, stage: FusedStage) -> torch.Tensor:
     def ptr(t):
         return None if t is None else ctypes.c_void_p(t.data_ptr())
 
-    with torch.cuda.device(device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-        for blk, n_launch in zip(stage.packed, launches):
-            x = y
-            if x.data_ptr() % 16:
-                raise ValueError("x is not 16-byte aligned")
-            c_in8, c_out8 = _round8(blk["c_in"]), _round8(blk["c_out"])
-            y = torch.empty((B, H, W, c_out8), dtype=torch.bfloat16,
-                            device=device)
-            err = lib.tpubody_fused_stage_block(
-                ptr(x), ptr(y), ptr(h2), ptr(blk["w1"]), ptr(blk["b1"]),
-                ptr(blk["w2"]), ptr(blk["b2"]), ptr(blk["w3"]),
-                ptr(blk["b3"]), ptr(blk["wd"]), ptr(blk["bd"]), B, H, W,
-                c_in8, blk["c_mid"], c_out8, stream)
-            native.check(err, "fused_stage launch")
-            native.LAUNCHES["fused_stage"] += n_launch
+    for blk, n_launch in zip(stage.packed, launches):
+        x = y
+        c_in8, c_out8 = _round8(blk["c_in"]), _round8(blk["c_out"])
+        native.expect("x", x, (B, H, W, c_in8), torch.bfloat16, device,
+                      aligned=True)
+        y = torch.empty((B, H, W, c_out8), dtype=torch.bfloat16,
+                        device=device)
+        native.launch("fused_stage", "tpubody_fused_stage_block", device,
+                      ptr(x), ptr(y), ptr(h2), ptr(blk["w1"]), ptr(blk["b1"]),
+                      ptr(blk["w2"]), ptr(blk["b2"]), ptr(blk["w3"]),
+                      ptr(blk["b3"]), ptr(blk["wd"]), ptr(blk["bd"]), B, H, W,
+                      c_in8, blk["c_mid"], c_out8, count=n_launch)
     c_out = stage.packed[-1]["c_out"]
     return y if y.shape[-1] == c_out else y[..., :c_out].contiguous()

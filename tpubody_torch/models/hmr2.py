@@ -56,7 +56,6 @@ norm2, mlp.fc1, mlp.fc2}``, ``backbone.last_norm``,
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import numpy as np
@@ -176,31 +175,18 @@ def add_layernorm(x: torch.Tensor, branch: torch.Tensor, norm: nn.LayerNorm,
         raise RuntimeError("add_layernorm has no backward on CUDA: call it "
                            "under torch.no_grad() or inference mode")
     f32 = (torch.float32,)
-    for name, t, shape, dtypes in (("x", x, x.shape, f32),
-                                   ("branch", branch, x.shape, _KERNEL_DTYPES),
-                                   ("weight", norm.weight, (D,), f32),
-                                   ("bias", norm.bias, (D,), f32)):
-        if (t.device != dev or tuple(t.shape) != tuple(shape)
-                or t.dtype not in dtypes):
-            raise RuntimeError(f"{name}: {t.dtype} {tuple(t.shape)} on "
-                               f"{t.device}, expected one of {dtypes} "
-                               f"{tuple(shape)} on {dev}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise RuntimeError(f"{name} is not contiguous and 16-byte "
-                               f"aligned")
+    native.expect("x", x, x.shape, f32, dev, aligned=True)
+    native.expect("branch", branch, x.shape, _KERNEL_DTYPES, dev, aligned=True)
+    native.expect("weight", norm.weight, (D,), f32, dev, aligned=True)
+    native.expect("bias", norm.bias, (D,), f32, dev, aligned=True)
     x_out = torch.empty_like(x) if keep_x else None
     h = torch.empty(x.shape, dtype=out_dtype, device=dev)
-    lib = native.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tpubody_add_layernorm(
-            x.data_ptr(), branch.data_ptr(),
-            int(branch.dtype == torch.bfloat16), norm.weight.data_ptr(),
-            norm.bias.data_ptr(), norm.eps,
-            None if x_out is None else x_out.data_ptr(), h.data_ptr(),
-            int(out_dtype == torch.bfloat16), M, D, ctypes.c_void_p(stream))
-    native.check(err, "add_layernorm launch")
-    native.LAUNCHES["add_layernorm"] += 1
+    native.launch("add_layernorm", "tpubody_add_layernorm", dev,
+                  x.data_ptr(), branch.data_ptr(),
+                  int(branch.dtype == torch.bfloat16), norm.weight.data_ptr(),
+                  norm.bias.data_ptr(), norm.eps,
+                  None if x_out is None else x_out.data_ptr(), h.data_ptr(),
+                  int(out_dtype == torch.bfloat16), M, D)
     return x_out, h
 
 

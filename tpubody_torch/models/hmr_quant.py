@@ -40,7 +40,6 @@ float64 and cast to int32: exact, since |sum| <= 4608 * 127^2 < 2^53.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import dataclasses
 from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
                     Tuple)
@@ -389,16 +388,6 @@ def requantize_reference(acc: torch.Tensor, qc: QConv, relu: bool,
     return [_quantize_input(y, s) for s in scales], (y if keep else None)
 
 
-def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...],
-           dtype: torch.dtype, device: torch.device,
-           aligned: bool = True) -> None:
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
-        raise RuntimeError(f"{name}: {t.dtype} {tuple(t.shape)} on "
-                           f"{t.device}, expected {dtype} {shape} on {device}")
-    if not t.is_contiguous() or (aligned and t.data_ptr() % 16):
-        raise RuntimeError(f"{name} is not contiguous and 16-byte aligned")
-
-
 def requantize(acc: torch.Tensor, qc: QConv, relu: bool,
                res: Optional[torch.Tensor] = None,
                scales: Sequence[torch.Tensor] = (), keep: bool = False
@@ -422,14 +411,15 @@ def requantize(acc: torch.Tensor, qc: QConv, relu: bool,
     if O % 4 or len(scales) > 2:
         raise RuntimeError(f"requantize: O = {O} is not a multiple of 4 or "
                            f"{len(scales)} consumers are more than 2")
-    _check("acc", acc, (M, O), torch.int32, dev)
-    _check("w_scale", qc.w_scale, (O,), torch.float32, dev)
-    _check("b", qc.b, (O,), torch.float32, dev)
-    _check("x_scale", qc.x_scale, (), torch.float32, dev, aligned=False)
+    f32 = torch.float32
+    native.expect("acc", acc, (M, O), torch.int32, dev, aligned=True)
+    native.expect("w_scale", qc.w_scale, (O,), f32, dev, aligned=True)
+    native.expect("b", qc.b, (O,), f32, dev, aligned=True)
+    native.expect("x_scale", qc.x_scale, (), f32, dev)
     if res is not None:
-        _check("res", res, (M, O), torch.float32, dev)
+        native.expect("res", res, (M, O), f32, dev, aligned=True)
     for s in scales:
-        _check("scale", s, (), torch.float32, dev, aligned=False)
+        native.expect("scale", s, (), f32, dev)
     codes = [torch.empty((M, O), dtype=torch.int8, device=dev)
              for _ in scales]
     out = (torch.empty((M, O), dtype=torch.float32, device=dev) if keep
@@ -438,17 +428,12 @@ def requantize(acc: torch.Tensor, qc: QConv, relu: bool,
     def ptr(ts, i):
         return ts[i].data_ptr() if i < len(ts) else None
 
-    lib = native.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tpubody_int8_requant(
-            acc.data_ptr(), qc.w_scale.data_ptr(), qc.x_scale.data_ptr(),
-            qc.b.data_ptr(), None if res is None else res.data_ptr(),
-            ptr(scales, 0), ptr(scales, 1), ptr(codes, 0), ptr(codes, 1),
-            None if out is None else out.data_ptr(), M, O, int(relu),
-            ctypes.c_void_p(stream))
-    native.check(err, "int8_requant launch")
-    native.LAUNCHES["int8_requant"] += 1
+    native.launch("int8_requant", "tpubody_int8_requant", dev,
+                  acc.data_ptr(), qc.w_scale.data_ptr(), qc.x_scale.data_ptr(),
+                  qc.b.data_ptr(), None if res is None else res.data_ptr(),
+                  ptr(scales, 0), ptr(scales, 1), ptr(codes, 0),
+                  ptr(codes, 1), None if out is None else out.data_ptr(), M,
+                  O, int(relu))
     return codes, out
 
 

@@ -7,8 +7,10 @@ Every ``tpubody_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
 includes PyTorch's headers.  The library is rebuilt whenever the
 sources' hash changes; nothing is compiled at import time.
 
-Each kernel wrapper adds one to its entry in :data:`LAUNCHES` where it
-launches its kernel, so a run can show that its path went through the
+Every kernel wrapper holds its tensors to the kernel's contract with
+:func:`expect` and launches through :func:`launch`, which runs the entry
+point on the device's current stream and counts the launch in
+:data:`LAUNCHES`, so a run can show that its path went through the
 kernels.
 """
 from __future__ import annotations
@@ -21,7 +23,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), os.pardir, "build",
@@ -168,3 +172,43 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().tpubody_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+class KernelInputError(ValueError, RuntimeError):
+    """A tensor that a kernel's contract refuses.  It is both a ValueError
+    and a RuntimeError, so a caller may catch either."""
+
+
+def expect(name: str, t: torch.Tensor, shape: Sequence[int],
+           dtype: Union[torch.dtype, Tuple[torch.dtype, ...]],
+           device: torch.device, aligned: bool = False) -> None:
+    """Hold the tensor ``t`` that a kernel reads or writes to its contract:
+    on ``device``, of ``dtype`` (or of one of a tuple of dtypes), of
+    ``shape``, contiguous and, if ``aligned``, at a 16-byte aligned
+    address.  Raises :class:`KernelInputError` naming ``name``."""
+    if t.device != device:
+        raise KernelInputError(f"{name} on {t.device}, expected {device}")
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
+        want = f"one of {dtype}" if isinstance(dtype, tuple) else dtype
+        raise KernelInputError(f"{name} has dtype {t.dtype}, expected {want}")
+    if tuple(t.shape) != tuple(shape):
+        raise KernelInputError(f"{name} has shape {tuple(t.shape)}, expected "
+                               f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise KernelInputError(f"{name} is not contiguous")
+    if aligned and t.data_ptr() % 16:
+        raise KernelInputError(f"{name} is not 16-byte aligned")
+
+
+def launch(name: str, entry: str, device: torch.device, *args,
+           count: int = 1) -> None:
+    """Call the library's entry point ``entry`` with ``args`` and, as its
+    last argument, ``device``'s current stream, with ``device`` current;
+    raise on the CUDA error it returns, and add ``count`` kernel launches
+    to ``LAUNCHES[name]``."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, ctypes.c_void_p(stream))
+    check(err, f"{name} launch")
+    LAUNCHES[name] += count

@@ -565,18 +565,6 @@ def fused_raster_emulated(table: torch.Tensor, cstarts: torch.Tensor,
     return torch.stack(wins), torch.stack(attrs)
 
 
-def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...],
-           dtype: torch.dtype, device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
 def fused_raster(table: torch.Tensor, cstarts: torch.Tensor, height: int,
                  width: int, fb: int, depth_levels: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -618,23 +606,16 @@ def _fused_raster_launch(table: torch.Tensor, cstarts: torch.Tensor,
     B, MAXC, CF, G, _ = table.shape
     C = G - 5
     T = (width // TILE_W) * (height // TILE_H)
-    _check("table", table, (B, MAXC, CF, G, 3), torch.float32, device)
-    _check("cstarts", cstarts, (B, T + 1), torch.int32, device)
-    if table.data_ptr() % 16:
-        raise ValueError("table is not 16-byte aligned")
+    native.expect("table", table, (B, MAXC, CF, G, 3), torch.float32, device,
+                  aligned=True)
+    native.expect("cstarts", cstarts, (B, T + 1), torch.int32, device)
     win = torch.empty((B, height, width), dtype=torch.int32, device=device)
     attr = torch.empty((B, C, height, width), dtype=torch.float32,
                        device=device)
-    lib = native.library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.tpubody_fused_raster(
-            table.data_ptr(), cstarts.data_ptr(), win.data_ptr(),
-            attr.data_ptr(), B, height, width, MAXC, CF, C, fb,
-            ctypes.c_float(float(depth_levels - 1)), cluster,
-            ctypes.c_void_p(stream))
-    native.check(err, "fused_raster launch")
-    native.LAUNCHES["fused_raster"] += 1
+    native.launch("fused_raster", "tpubody_fused_raster", device,
+                  table.data_ptr(), cstarts.data_ptr(), win.data_ptr(),
+                  attr.data_ptr(), B, height, width, MAXC, CF, C, fb,
+                  ctypes.c_float(float(depth_levels - 1)), cluster)
     return win, attr
 
 
@@ -915,20 +896,14 @@ def _zbuffer_launch(table: torch.Tensor, nchunks: torch.Tensor, height: int,
     ``cluster`` (1 or 2) blocks a tile."""
     device = table.device
     B, T, NC = table.shape[:3]
-    _check("table", table, (B, T, NC, 5 * CF, 4), torch.float32, device)
-    _check("nchunks", nchunks, (B, T), torch.int32, device)
-    if table.data_ptr() % 16:
-        raise ValueError("table is not 16-byte aligned")
+    native.expect("table", table, (B, T, NC, 5 * CF, 4), torch.float32,
+                  device, aligned=True)
+    native.expect("nchunks", nchunks, (B, T), torch.int32, device)
     zbuf = torch.empty((B, height, width), dtype=torch.int32, device=device)
-    lib = native.library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.tpubody_zbuffer(
-            table.data_ptr(), nchunks.data_ptr(), zbuf.data_ptr(), B, height,
-            width, NC, fb, ctypes.c_float(float(depth_levels - 1)),
-            cluster, ctypes.c_void_p(stream))
-    native.check(err, "zbuffer launch")
-    native.LAUNCHES["zbuffer"] += 1
+    native.launch("zbuffer", "tpubody_zbuffer", device,
+                  table.data_ptr(), nchunks.data_ptr(), zbuf.data_ptr(), B,
+                  height, width, NC, fb,
+                  ctypes.c_float(float(depth_levels - 1)), cluster)
     return zbuf
 
 
