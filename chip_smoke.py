@@ -255,7 +255,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                in turns (int8, bf16, bf16, int8; bench's timing helper),
                the int8 step's split by its program spans (quantize +
                im2col, products, epilogue, head, LBS) and each step's peak
-               memory; int8_requant at each launch of one backbone at
+               memory; the int8 step on the same 512 frames from host
+               memory (the main path: copied in chunks of
+               serving.CHUNK_FRAMES under the backbone), the counters
+               zeroed just before, must go in ceil(512 / CHUNK_FRAMES)
+               chunks and launch int8_requant 53 times a chunk and
+               fused_lbs once (launches_step, chunks in the result); int8_requant at each launch of one backbone at
                batch 512 (seeded sums, bit-equal to its plain version),
                timed by CUDA events and summed, beside the plain version
                and its byte bound (the kernel line's fifth entry);
@@ -293,9 +298,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                save_npz and write_obj from tensors on the card.
   28. layernorm — add_layernorm (csrc/add_layernorm.cu): one HMR 2.0
                step (hmr_smpl_step(arch="hmr2_vith"), the cell's path) at
-               512 frames of 256^2, the counters zeroed just before it,
-               must launch it 64 times (the kernel line's launches, and
-               launches_hmr2 for the others).  Then at the encoder's
+               512 frames of 256^2 from host memory (copied in chunks of
+               serving.CHUNK_FRAMES under the encoder), the counters
+               zeroed just before it, must go in ceil(512 /
+               CHUNK_FRAMES) chunks and launch it 64 times a chunk
+               (the kernel line's launches, and launches_hmr2 for the
+               others).  Then at the encoder's
                shape, 98,304 tokens of 1280 (512 frames of 192), a bf16
                branch, in the step's two forms, each held to its plain
                version: bf16 output with x + branch kept (x + branch
@@ -3524,6 +3532,7 @@ QUANT_CPU_BATCH = 4       # the int8 forward, card vs the CPU route
 QUANT_CODE_SHARE = 0.999  # int8 codes equal at every conv input, card vs CPU
 QUANT_FIDELITY = 0.15     # tpubody's bar: err / scale of pose6d, int8 vs f32
 ORTHO_ATOL = 1e-4         # rotations of the int8 outputs orthonormal
+QUANT_CONVS = 53          # int8_requant launches a backbone call
 QUANT_ITERS = 10          # CUDA-event timing after 3 warm-up steps
 MESH_LBS_FRAMES = 512
 MESH_FIT_N = 8            # frames of the sharded fit, 2 iterations a stage
@@ -3659,7 +3668,7 @@ def phase_quant(dev):
     """int8 HMR serving at full width (hmr_smpl_step(quantize=True))."""
     import torch
 
-    from tpubody_torch import bench
+    from tpubody_torch import bench, native
     from tpubody_torch.models import hmr as hmr_lib
     from tpubody_torch.models import hmr_quant as hq
     from tpubody_torch.pipelines import serving
@@ -3758,6 +3767,27 @@ def phase_quant(dev):
                                                3))
             peak[name] = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
         split_ms = span_split(lambda: int8(big), 5)
+    # The main path: the same frames from host memory, copied in chunks
+    # under the backbone (serving.CHUNK_FRAMES), the counters zeroed just
+    # before: int8_requant 53 times a chunk, fused_lbs once.
+    host = big.cpu().numpy()
+    chunks = int8._chunks(host)
+    if chunks != -(-QUANT_BATCH // serving.CHUNK_FRAMES):
+        raise RuntimeError(f"the int8 step takes {QUANT_BATCH} host frames "
+                           f"in {chunks} pieces, not in chunks of "
+                           f"{serving.CHUNK_FRAMES}")
+    native.reset_launches()
+    with torch.inference_mode():
+        int8(host)
+    torch.cuda.synchronize()
+    step_launches = dict(native.LAUNCHES)
+    log(f"  int8 step on {QUANT_BATCH} host frames in {chunks} chunks: "
+        f"launches {step_launches}")
+    if (step_launches["int8_requant"] != QUANT_CONVS * chunks
+            or step_launches["fused_lbs"] != 1):
+        raise RuntimeError(f"the int8 step on {chunks} chunks launched "
+                           f"{step_launches}, not {QUANT_CONVS} "
+                           f"int8_requant a chunk and fused_lbs once")
     requant = requant_timing(qp, dev)
     requant["launches"] = launches["int8_requant"]
     ms = {k: min(v) for k, v in timed.items()}
@@ -3771,7 +3801,9 @@ def phase_quant(dev):
         "latency_p99_ms": snap["latency_p99_ms"],
         "code_share_min": min(shares.values()), "cpu_err": err_cpu,
         "fidelity": fid, "int_mm_ms": mm_ms, "int_mm_tops": mm_tops,
-        "launches": launches, "requant": requant, "card": card_line()}
+        "launches": launches, "chunks": chunks,
+        "launches_step": step_launches, "requant": requant,
+        "card": card_line()}
     log(f"  int8 step {ms['int8']:.3f} ms = {res['int8_fps']:.1f} frames/s;"
         f" bf16 step {ms['bf16']:.3f} ms = {res['bf16_fps']:.1f} frames/s "
         f"(batch {QUANT_BATCH}, in turns {timed}); int8 split ms {split_ms};"
@@ -3862,16 +3894,22 @@ LN_F32_BAR = 2e-6          # float32 output: of its largest magnitude
 
 def hmr2_step_launches(dev):
     """One HMR 2.0 step (hmr_smpl_step(arch="hmr2_vith"), the cell's path)
-    at LN_FRAMES frames of 256^2, the counters zeroed just before it ->
-    the launches of that step."""
+    at LN_FRAMES frames of 256^2 from host memory, copied in chunks under
+    the encoder, the counters zeroed just before it -> (the launches of
+    that step, its chunks)."""
     import torch
 
     from tpubody_torch import native
     from tpubody_torch.pipelines import serving
 
     step = serving.hmr_smpl_step(arch="hmr2_vith", device=dev)
-    images = torch.randn((LN_FRAMES, 256, 256, 3), device=dev,
-                         generator=torch.Generator(dev).manual_seed(28))
+    images = np.random.default_rng(28).normal(
+        size=(LN_FRAMES, 256, 256, 3)).astype(np.float32)
+    chunks = step._chunks(images)
+    if chunks != -(-LN_FRAMES // serving.CHUNK_FRAMES):
+        raise RuntimeError(f"the HMR 2.0 step takes {LN_FRAMES} host frames "
+                           f"in {chunks} pieces, not in chunks of "
+                           f"{serving.CHUNK_FRAMES}")
     native.reset_launches()
     verts, cam = step(images)
     torch.cuda.synchronize()
@@ -3880,7 +3918,7 @@ def hmr2_step_launches(dev):
         raise RuntimeError("non-finite HMR 2.0 output")
     del step, images, verts, cam
     torch.cuda.empty_cache()
-    return launches
+    return launches, chunks
 
 
 def phase_layernorm(dev):
@@ -3893,7 +3931,7 @@ def phase_layernorm(dev):
     from tpubody_torch import native
     from tpubody_torch.models import hmr2
 
-    step_launches = hmr2_step_launches(dev)
+    step_launches, chunks = hmr2_step_launches(dev)
     M, D, bf16 = LN_TOKENS, LN_DIM, torch.bfloat16
     g = torch.Generator(dev).manual_seed(20)
     x = torch.randn(M, D, generator=g, device=dev) * 2 + 0.5
@@ -3902,10 +3940,12 @@ def phase_layernorm(dev):
     res = {"name": "add_layernorm", "route": "cuda",
            "source": "tpubody_torch/csrc/add_layernorm.cu", "replaces": None,
            "shape": {"tokens": M, "dim": D, "branch": "bf16", "out": "bf16"},
-           "bound_by": "bytes", "launches": step_launches["add_layernorm"]}
-    if res["launches"] != 64:
+           "bound_by": "bytes", "launches": step_launches["add_layernorm"],
+           "chunks": chunks}
+    if res["launches"] != 64 * chunks:
         raise RuntimeError(f"the HMR 2.0 step launched add_layernorm "
-                           f"{res['launches']} times, not 64")
+                           f"{res['launches']} times, not 64 x {chunks} "
+                           f"chunks")
     with torch.no_grad():
         norm.weight.normal_(1.0, 0.1, generator=g)
         norm.bias.normal_(0.0, 0.1, generator=g)
@@ -3951,7 +3991,8 @@ def phase_layernorm(dev):
     res.update(ms=res["kernel_ms"], plain_ms=res["library_ms"],
                gb=nbytes / 1e9, bound_ms=nbytes / PEAK_BYTES * 1e3)
     res["share"] = res["bound_ms"] / res["kernel_ms"]
-    log(f"  HMR 2.0 step at {LN_FRAMES} frames: launches {step_launches}")
+    log(f"  HMR 2.0 step at {LN_FRAMES} host frames in {chunks} chunks: "
+        f"launches {step_launches}")
     log(f"  add_layernorm at {M} x {D} (bf16 branch and output, "
         f"{res['gb']:.3f} GB): {res['kernel_ms']:.4f} ms, bound "
         f"{res['bound_ms']:.4f} ms (share {res['share']:.3f}), eager chain "

@@ -227,7 +227,7 @@ class HMR(nn.Module):
                 rng: Optional[torch.Generator] = None) -> HMROutput:
         """images: (B, H, W, 3) NHWC, normalised.  ``rng``: the dropout
         masks' generator (on the images' device), needed in train mode."""
-        return self.ief(self.backbone(images), rng)
+        return self.head(self.backbone(images), rng)
 
     def _dropout(self, h: torch.Tensor,
                  rng: Optional[torch.Generator]) -> torch.Tensor:
@@ -266,6 +266,9 @@ class HMR(nn.Module):
                 B, 24, 3, 3)
             return HMROutput(rotmats=rotmats, shape=shape, cam=cam,
                              pose6d=pose)
+
+    # What follows the backbone, by the name the serving step calls.
+    head = ief
 
 
 def _tiled_mean(sixd) -> np.ndarray:

@@ -216,6 +216,10 @@ class ViTH(nn.Module):
         self.last_norm = nn.LayerNorm(dim, eps=ENCODER_EPS)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
+        if tuple(images.shape[1:]) != (self.image_size, self.image_size, 3):
+            raise ValueError(f"ViTH takes (B, {self.image_size}, "
+                             f"{self.image_size}, 3) images, got "
+                             f"{tuple(images.shape)}")
         with span("hmr2.backbone"):
             lo = (self.image_size - self.crop_width) // 2
             x = self.patch_embed(images[:, :, lo:lo + self.crop_width])
@@ -384,11 +388,12 @@ class HMR2(nn.Module):
 
     def forward(self, images: torch.Tensor) -> HMROutput:
         """images: (B, image_size, image_size, 3) NHWC, normalised."""
-        if tuple(images.shape[1:]) != (self.image_size, self.image_size, 3):
-            raise ValueError(f"HMR2 takes (B, {self.image_size}, "
-                             f"{self.image_size}, 3) images, got "
-                             f"{tuple(images.shape)}")
-        return self.smpl_head(self.backbone(images))
+        return self.head(self.backbone(images))
+
+    def head(self, tokens: torch.Tensor) -> HMROutput:
+        """The SMPL head on the encoder's tokens (what follows the
+        backbone, by the name the serving step calls)."""
+        return self.smpl_head(tokens)
 
 
 # -- weights ----------------------------------------------------------------

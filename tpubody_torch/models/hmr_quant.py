@@ -515,17 +515,11 @@ def _backbone_int8(qparams: dict, x: torch.Tensor,
         return torch.mean(x, dim=(1, 2))
 
 
-@torch.no_grad()
 def forward(qparams: dict, images,
             mean_params: Optional[np.ndarray] = None,
             n_iter: int = 3) -> hmr_lib.HMROutput:
     """int8 inference: images (B, H, W, 3) -> HMROutput."""
-    if mean_params is None:
-        mean_params = hmr_lib.default_mean_params()
-    x = _images(images, _device_of(qparams))
-    with span("hmr_quant.backbone"):
-        xf = _backbone_int8(qparams, x)
-    return _ief_head(qparams["head"], xf, mean_params, n_iter)
+    return QuantizedHMR(qparams, mean_params, n_iter)(images)
 
 
 def quantize_hmr(model: hmr_lib.HMR, calib_images) -> dict:
@@ -536,8 +530,9 @@ def quantize_hmr(model: hmr_lib.HMR, calib_images) -> dict:
 
 
 class QuantizedHMR:
-    """:func:`forward` with its parameters: images -> HMROutput, the model
-    of the int8 serving step."""
+    """The int8 model of the serving step: images -> HMROutput, as
+    ``head(backbone(images))``, HMR's two parts.  ``mean_params`` defaults
+    to ``hmr.default_mean_params()``."""
 
     def __init__(self, qparams: dict,
                  mean_params: Optional[np.ndarray] = None, n_iter: int = 3):
@@ -545,8 +540,22 @@ class QuantizedHMR:
         self.mean_params = mean_params
         self.n_iter = n_iter
 
+    @torch.no_grad()
+    def backbone(self, images) -> torch.Tensor:
+        """The int8 backbone: images (B, H, W, 3) -> (B, 2048) features."""
+        x = _images(images, _device_of(self.qparams))
+        with span("hmr_quant.backbone"):
+            return _backbone_int8(self.qparams, x)
+
+    @torch.no_grad()
+    def head(self, features: torch.Tensor) -> hmr_lib.HMROutput:
+        """The float32 IEF head on the pooled features."""
+        mean = (hmr_lib.default_mean_params() if self.mean_params is None
+                else self.mean_params)
+        return _ief_head(self.qparams["head"], features, mean, self.n_iter)
+
     def __call__(self, images) -> hmr_lib.HMROutput:
-        return forward(self.qparams, images, self.mean_params, self.n_iter)
+        return self.head(self.backbone(images))
 
     def to(self, device: DeviceLike) -> "QuantizedHMR":
         return QuantizedHMR(mesh_lib.copy_to(self.qparams, resolve(device)),

@@ -81,17 +81,28 @@ def _to_numpy(t):
 
 
 # -- the flagship step ------------------------------------------------------
+# Frames a chunk when HMRSMPLStep pipelines its copy in.
+CHUNK_FRAMES = 256
+
+
 class HMRSMPLStep:
     """images (B, H, W, 3) float32 NHWC -> (posed verts (B, V, 3) fp32,
-    weak-perspective cam (B, 3) fp32).  ``hmr`` (the HMR module, or the
-    int8 ``hmr_quant.QuantizedHMR``) and ``body`` are on ``device``;
-    ``image_shape`` is one request's input shape.  ``to(device)`` is a
-    replica on another device (a sharded server makes one a device)."""
+    weak-perspective cam (B, 3) fp32).  ``hmr`` (the HMR module, HMR 2.0's,
+    or the int8 ``hmr_quant.QuantizedHMR``: each ``head(backbone(images))``)
+    and ``body`` are on ``device``; ``image_shape`` is one request's input
+    shape.  ``to(device)`` is a replica on another device (a sharded server
+    makes one a device).
 
-    def __init__(self, hmr, body, device: torch.device, image_size: int):
+    A batch in host memory of at least two chunks of ``CHUNK_FRAMES``
+    frames, on a CUDA step, is copied in chunk by chunk on a side stream
+    while the card runs the backbone on the chunk before (every backbone
+    works frame by frame); the head and the LBS then run once on the whole
+    batch.  Any other batch is copied in one piece."""
+
+    def __init__(self, hmr, body, device: DeviceLike, image_size: int):
         self.hmr = hmr
         self.body = body
-        self.device = device
+        self.device = torch.device(device)
         self.image_shape = (image_size, image_size, 3)
 
     def to(self, device: DeviceLike) -> "HMRSMPLStep":
@@ -101,15 +112,56 @@ class HMRSMPLStep:
         return HMRSMPLStep(mesh_lib.copy_to(self.hmr, dev),
                            self.body.to(dev), dev, self.image_shape[0])
 
+    def _chunks(self, images) -> int:
+        """How many pieces the step copies ``images`` in: ceil(B /
+        CHUNK_FRAMES) on CUDA for a host batch of at least two chunks,
+        else 1."""
+        on_host = (not isinstance(images, torch.Tensor)
+                   or images.device.type == "cpu")
+        if (self.device.type != "cuda" or not on_host
+                or len(images) < 2 * CHUNK_FRAMES):
+            return 1
+        return -(-len(images) // CHUNK_FRAMES)
+
+    def _backbone_in_chunks(self, images, chunk: int) -> torch.Tensor:
+        """The backbone's features of a host batch, copied in ``chunk``
+        frames at a time.  On CUDA each chunk's copy runs on a side stream
+        (a span ``step.h2d`` each, its events on that stream) and the
+        compute stream waits for it before the chunk's backbone; that
+        backbone is queued before the host starts the next copy, which
+        holds the host until a pageable source is staged.  Nothing waits
+        on the host."""
+        host = torch.as_tensor(images, dtype=torch.float32)
+        batch = torch.empty(host.shape, dtype=torch.float32,
+                            device=self.device)
+        cuda = self.device.type == "cuda"
+        copy = torch.cuda.Stream(self.device) if cuda else None
+        if cuda:
+            compute = torch.cuda.current_stream(self.device)
+            copy.wait_stream(compute)        # batch's memory is free there
+        features = []
+        for a in range(0, len(host), chunk):
+            part = slice(a, a + chunk)
+            with torch.cuda.stream(copy), span("step.h2d"):
+                batch[part].copy_(host[part], non_blocking=True)
+            if cuda:
+                compute.wait_event(copy.record_event())
+            features.append(self.hmr.backbone(batch[part]))
+        return torch.cat(features)
+
     @torch.inference_mode()
     def __call__(self, images) -> Tuple[torch.Tensor, torch.Tensor]:
         from tpubody_torch.models import smpl as smpl_lib
 
         with span("step"):
-            with span("step.h2d"):
-                images = torch.as_tensor(images, dtype=torch.float32,
-                                         device=self.device)
-            out = self.hmr(images)
+            if self._chunks(images) > 1:
+                features = self._backbone_in_chunks(images, CHUNK_FRAMES)
+            else:
+                with span("step.h2d"):
+                    images = torch.as_tensor(images, dtype=torch.float32,
+                                             device=self.device)
+                features = self.hmr.backbone(images)
+            out = self.hmr.head(features)
             verts = smpl_lib.forward_batch_verts(
                 self.body, out.rotmats, out.shape, None, pose_is_rotmat=True)
         return verts, out.cam
