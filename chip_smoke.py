@@ -9,9 +9,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                for sm_90a (first use builds; the time is printed);
   2. kernels — hold the fused LBS kernel to its plain PyTorch version on
                the card, TF32 off: full width (512 frames, the 6890-vertex
-               humanoid) and ragged shapes (5 and 70 frames, 700 vertices),
-               shared and per-frame betas, axis-angle and rotation-matrix
-               poses, both precisions (max |d| < 2e-5 for "highest",
+               humanoid), SMPL-X's served shape (512 bodies of 10,475
+               vertices, 55 joints, betas and expression: K = 486 + 20 + 1
+               = 507, with a translation) and ragged shapes (5 and 70
+               frames, 700 vertices), shared and per-frame betas,
+               axis-angle and rotation-matrix poses, both precisions (max |d| < 2e-5 for "highest",
                relative error < 1e-4 for "bf16x3", the bars of
                tests/test_pallas_lbs.py);
   3. serve   — the main path through its entry points at full width:
@@ -314,7 +316,16 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                events, beside the byte bound (1.51 GB at 3.35 TB/s) and
                the eager add + F.layer_norm + cast on the same inputs,
                its plain version, as library_ms (the kernel line's sixth
-               entry).
+               entry).  Then Multi-HMR's form at its encoder's shape,
+               262,208 tokens of 1024 (64 frames of 4,097), with
+               LayerScale's float32 per-channel scale on the branch, in the
+               same two forms at the same bars, timed beside its bound.
+  29. multihmr — one Multi-HMR step (hmr_smpl_step(arch=
+               "multihmr_896_l"), the cell's path) at 64 frames of 896^2
+               from host memory, in one piece, the counters zeroed just
+               before it: (64, 8, 10475, 3) finite vertices and (64, 8,
+               3) translations, 48 add_layernorm launches and one
+               fused_lbs (launches_multihmr for every kernel).
 
 It then prints the whole script's time, the kernel line (each kernel with the card's name and power
 limit), the card's name and power limit, and, last,
@@ -322,7 +333,7 @@ limit), the card's name and power limit, and, last,
 ``--phases a,b`` runs a subset (names: lbs, serve, bench, raster, video,
 oracle, vtiming, zbuffer, reconstruct, rtiming, stage, backbone, fit,
 fitserve, ftiming, rwhole, demo, train, remat, pose2d, asf, quant, mesh,
-multihost, closure, layernorm, and the extra
+multihost, closure, layernorm, multihmr, and the extra
 vprofile: a torch.profiler pass over the video path) and prints no result
 line: a development aid.
 """
@@ -475,12 +486,13 @@ def lbs_inputs(body, F, rng, rotmat, per_frame_beta, with_trans):
     aa = torch.as_tensor(rng.normal(scale=0.3, size=(F, body.num_joints, 3)),
                          dtype=torch.float32, device=dev)
     poses = rotations.rodrigues(aa) if rotmat else aa
-    shape = (F, body.num_betas) if per_frame_beta else (body.num_betas,)
+    n_shape = body.num_betas + body.num_expressions
+    shape = (F, n_shape) if per_frame_beta else (n_shape,)
     beta = torch.as_tensor(rng.normal(scale=0.5, size=shape),
                            dtype=torch.float32, device=dev)
     trans = (torch.as_tensor(rng.normal(size=(F, 3)), dtype=torch.float32,
                              device=dev) if with_trans else None)
-    layouts = fused_lbs.model_layouts(body)
+    layouts = fused_lbs.model_layouts(body, n_shape)
     feat, g = fused_lbs.lbs_prologue(layouts, body.parents, poses, beta,
                                      pose_is_rotmat=rotmat)
     return layouts, feat, g, trans, (poses, beta)
@@ -495,9 +507,13 @@ def phase_kernels(dev):
     rng = np.random.default_rng(0)
     full = humanoid.humanoid(n_joints=24, n_verts=6890, device=dev)
     ragged = params.synthetic(n_joints=24, n_verts=700, seed=2, device=dev)
+    # SMPL-X as Multi-HMR serves it: betas and expression, a translation
+    smplx = params.synthetic(n_joints=55, n_verts=10475, seed=4, device=dev)
     cases = [
         ("full aa shared-beta trans", full, 512, False, False, True),
         ("full rotmat per-frame-beta", full, 512, True, True, False),
+        ("smplx rotmat per-frame-beta+expr trans", smplx, 512, True, True,
+         True),
         ("ragged aa shared-beta trans", ragged, 5, False, False, True),
         ("ragged rotmat per-frame-beta trans", ragged, 5, True, True, True),
         # past one 64-frame tile, with a ragged second one
@@ -515,10 +531,14 @@ def phase_kernels(dev):
                                                 feat, g, trans, prec)
             if got.shape != (F, body.num_verts, 3):
                 raise RuntimeError(f"{name}: shape {tuple(got.shape)}")
+            if layouts.basis.shape[1] != feat.shape[1]:
+                raise RuntimeError(f"{name}: K {feat.shape[1]} against the "
+                                   f"layout's {layouts.basis.shape[1]}")
             err = (got - ref).abs().max().item()
             rel = err / ref.abs().max().item()
             ok = err < 2e-5 if prec == "highest" else rel < 1e-4
-            log(f"  {name:36s} {prec:8s} max|d|={err:.3e} rel={rel:.3e}"
+            log(f"  {name:40s} {prec:8s} K={feat.shape[1]} "
+                f"max|d|={err:.3e} rel={rel:.3e}"
                 f" {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise RuntimeError(f"fused_lbs disagrees with its plain "
@@ -3921,22 +3941,81 @@ def hmr2_step_launches(dev):
     return launches, chunks
 
 
-def phase_layernorm(dev):
-    """add_layernorm on the HMR 2.0 step (its launches), then at the main
-    path's shape in both of the step's forms, each held to its plain
-    version, and timed beside its byte bound and the eager chain -> (the
-    kernel line's entry, the step's launches)."""
+def hold_layernorm_forms(x, branch, norm, scale=None):
+    """add_layernorm in the encoders' two forms on the same inputs, each
+    held to its plain version (raises where one differs) -> their
+    differences: the blocks' form (bf16 output, x + branch kept: the new
+    stream bit-equal, the output within a bf16 ulp of the largest
+    magnitude and unequal on under 0.1% of elements) and the last block's
+    (float32 output without x_new, within LN_F32_BAR of the largest
+    magnitude).  ``scale``: LayerScale's per-channel scale, or None."""
     import torch
 
     from tpubody_torch import native
     from tpubody_torch.models import hmr2
 
+    bf16, res = torch.bfloat16, {}
+    before = native.LAUNCHES["add_layernorm"]
+    got_x, got_h = hmr2.add_layernorm(x, branch, norm, bf16, scale=scale)
+    want_x, want_h = hmr2.add_layernorm_reference(x, branch, norm, bf16,
+                                                  scale=scale)
+    torch.cuda.synchronize()
+    diff = (got_h.float() - want_h.float()).abs()
+    res["max_diff"] = float(diff.max())
+    res["unequal_share"] = float((diff > 0).float().mean())
+    ulp = 2.0 ** (int(np.floor(np.log2(float(want_h.float().abs()
+                                                 .max())))) - 7)
+    if (native.LAUNCHES["add_layernorm"] != before + 1
+            or not torch.equal(got_x, want_x)
+            or res["max_diff"] > ulp or res["unequal_share"] >= 1e-3):
+        raise RuntimeError(f"add_layernorm differs from its plain "
+                           f"version: {res}")
+    del got_x, got_h, want_x, want_h, diff
+    none, got_h = hmr2.add_layernorm(x, branch, norm, torch.float32,
+                                     keep_x=False, scale=scale)
+    _, want_h = hmr2.add_layernorm_reference(x, branch, norm, torch.float32,
+                                             keep_x=False, scale=scale)
+    torch.cuda.synchronize()
+    res["last_block_max_diff"] = float((got_h - want_h).abs().max())
+    bar = LN_F32_BAR * float(want_h.abs().max())
+    if (none is not None or got_h.dtype != torch.float32
+            or native.LAUNCHES["add_layernorm"] != before + 2
+            or not res["last_block_max_diff"] <= bar):
+        raise RuntimeError(f"add_layernorm's float32 form without "
+                           f"x_new differs from its plain version: "
+                           f"{res['last_block_max_diff']} (bar {bar})")
+    return res
+
+
+def layernorm_inputs(M, D, dev, seed):
+    """Seeded float32 x (M, D), a bf16 branch and a LayerNorm of D."""
+    import torch
+
+    from tpubody_torch.models import hmr2
+
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn(M, D, generator=g, device=dev) * 2 + 0.5
+    branch = torch.randn(M, D, generator=g, device=dev).to(torch.bfloat16)
+    norm = torch.nn.LayerNorm(D, eps=hmr2.ENCODER_EPS, device=dev)
+    with torch.no_grad():
+        norm.weight.normal_(1.0, 0.1, generator=g)
+        norm.bias.normal_(0.0, 0.1, generator=g)
+    return x, branch, norm, g
+
+
+def phase_layernorm(dev):
+    """add_layernorm on the HMR 2.0 step (its launches), then at the main
+    path's shape in both of the step's forms, each held to its plain
+    version, and timed beside its byte bound and the eager chain; then
+    Multi-HMR's LayerScale form at its encoder's shape, held and timed
+    alike -> (the kernel line's entry, the step's launches)."""
+    import torch
+
+    from tpubody_torch.models import hmr2
+
     step_launches, chunks = hmr2_step_launches(dev)
     M, D, bf16 = LN_TOKENS, LN_DIM, torch.bfloat16
-    g = torch.Generator(dev).manual_seed(20)
-    x = torch.randn(M, D, generator=g, device=dev) * 2 + 0.5
-    branch = torch.randn(M, D, generator=g, device=dev).to(bf16)
-    norm = torch.nn.LayerNorm(D, eps=hmr2.ENCODER_EPS, device=dev)
+    x, branch, norm, _ = layernorm_inputs(M, D, dev, 20)
     res = {"name": "add_layernorm", "route": "cuda",
            "source": "tpubody_torch/csrc/add_layernorm.cu", "replaces": None,
            "shape": {"tokens": M, "dim": D, "branch": "bf16", "out": "bf16"},
@@ -3947,40 +4026,8 @@ def phase_layernorm(dev):
                            f"{res['launches']} times, not 64 x {chunks} "
                            f"chunks")
     with torch.no_grad():
-        norm.weight.normal_(1.0, 0.1, generator=g)
-        norm.bias.normal_(0.0, 0.1, generator=g)
         args = (x, branch, norm, bf16)
-        # The blocks' form: bf16 output, x + branch kept.
-        before = native.LAUNCHES["add_layernorm"]
-        got_x, got_h = hmr2.add_layernorm(*args)
-        want_x, want_h = hmr2.add_layernorm_reference(*args)
-        torch.cuda.synchronize()
-        diff = (got_h.float() - want_h.float()).abs()
-        res["max_diff"] = float(diff.max())
-        res["unequal_share"] = float((diff > 0).float().mean())
-        ulp = 2.0 ** (int(np.floor(np.log2(float(want_h.float().abs()
-                                                     .max())))) - 7)
-        if (native.LAUNCHES["add_layernorm"] != before + 1
-                or not torch.equal(got_x, want_x)
-                or res["max_diff"] > ulp or res["unequal_share"] >= 1e-3):
-            raise RuntimeError(f"add_layernorm differs from its plain "
-                               f"version: {res}")
-        del got_x, got_h, want_x, want_h, diff
-        # The last block's form: float32 output for last_norm, no x_new.
-        none, got_h = hmr2.add_layernorm(x, branch, norm, torch.float32,
-                                         keep_x=False)
-        _, want_h = hmr2.add_layernorm_reference(x, branch, norm,
-                                                 torch.float32, keep_x=False)
-        torch.cuda.synchronize()
-        res["last_block_max_diff"] = float((got_h - want_h).abs().max())
-        bar = LN_F32_BAR * float(want_h.abs().max())
-        if (none is not None or got_h.dtype != torch.float32
-                or native.LAUNCHES["add_layernorm"] != before + 2
-                or not res["last_block_max_diff"] <= bar):
-            raise RuntimeError(f"add_layernorm's float32 form without "
-                               f"x_new differs from its plain version: "
-                               f"{res['last_block_max_diff']} (bar {bar})")
-        del got_h, want_h
+        res.update(hold_layernorm_forms(x, branch, norm))
         res["kernel_ms"] = time_ms(lambda: hmr2.add_layernorm(*args), 50, 5)
         res["last_block_ms"] = time_ms(
             lambda: hmr2.add_layernorm(x, branch, norm, torch.float32,
@@ -4000,8 +4047,87 @@ def phase_layernorm(dev):
         f"unequal share {res['unequal_share']:.3g}; float32 output without "
         f"x_new {res['last_block_ms']:.4f} ms, max diff "
         f"{res['last_block_max_diff']:.3g}")
+    del x, branch, norm
+    res["layerscale"] = phase_layernorm_scaled(dev)
     log(json.dumps({"layernorm": res, "card": card_line()}))
     return res, step_launches
+
+
+def phase_layernorm_scaled(dev):
+    """Multi-HMR's form of add_layernorm, ``x + γ ⊙ branch``, at its
+    encoder's shape (MH_FRAMES frames of 4,097 tokens of 1024), held to its
+    plain version in both forms and timed beside the byte bound -> its
+    result."""
+    import torch
+
+    from tpubody_torch.models import hmr2
+
+    M, D = MH_FRAMES * 4097, 1024
+    x, branch, norm, g = layernorm_inputs(M, D, dev, 23)
+    # LayerScale as the benchmark seeds it: U(0.1, 0.5) a channel
+    gamma = torch.rand(D, generator=g, device=dev) * 0.4 + 0.1
+    res = {"shape": {"tokens": M, "dim": D, "branch": "bf16",
+                     "scale": "float32"}}
+    with torch.no_grad():
+        res.update(hold_layernorm_forms(x, branch, norm, gamma))
+        res["kernel_ms"] = time_ms(lambda: hmr2.add_layernorm(
+            x, branch, norm, torch.bfloat16, scale=gamma), 50, 5)
+        res["last_block_ms"] = time_ms(lambda: hmr2.add_layernorm(
+            x, branch, norm, torch.float32, keep_x=False, scale=gamma),
+            50, 5)
+    nbytes = M * D * (4 + 2 + 4 + 2)
+    res.update(gb=nbytes / 1e9, bound_ms=nbytes / PEAK_BYTES * 1e3)
+    res["share"] = res["bound_ms"] / res["kernel_ms"]
+    log(f"  add_layernorm with LayerScale at {M} x {D} ({res['gb']:.3f} "
+        f"GB): {res['kernel_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+        f"(share {res['share']:.3f}); max diff {res['max_diff']:.3g}, "
+        f"unequal share {res['unequal_share']:.3g}; float32 output without "
+        f"x_new {res['last_block_ms']:.4f} ms, max diff "
+        f"{res['last_block_max_diff']:.3g}")
+    return res
+
+
+MH_FRAMES = 64            # phase 29: the Multi-HMR cell's batch
+
+
+def phase_multihmr(dev):
+    """One Multi-HMR step (hmr_smpl_step(arch="multihmr_896_l"), the cell's
+    path) at MH_FRAMES frames of 896^2 from host memory, the counters
+    zeroed just before it -> its result (shapes, launches)."""
+    import torch
+
+    from tpubody_torch import native
+    from tpubody_torch.pipelines import serving
+
+    step = serving.hmr_smpl_step(arch="multihmr_896_l", device=dev)
+    P = step.hmr.persons
+    images = np.random.default_rng(29).normal(
+        size=(MH_FRAMES, 896, 896, 3)).astype(np.float32)
+    chunks = step._chunks(images)
+    native.reset_launches()
+    t0 = time.perf_counter()
+    verts, transl = step(images)
+    torch.cuda.synchronize()
+    res = {"frames": MH_FRAMES, "persons": P, "chunks": chunks,
+           "cold_s": time.perf_counter() - t0,
+           "verts": list(verts.shape), "transl": list(transl.shape),
+           "launches": dict(native.LAUNCHES)}
+    if (tuple(verts.shape) != (MH_FRAMES, 8, 10475, 3)
+            or tuple(transl.shape) != (MH_FRAMES, 8, 3)):
+        raise RuntimeError(f"the Multi-HMR step answers {res['verts']} and "
+                           f"{res['transl']}")
+    if not (torch.isfinite(verts).all() and torch.isfinite(transl).all()):
+        raise RuntimeError("non-finite Multi-HMR output")
+    if (chunks != 1 or res["launches"]["add_layernorm"] != 48
+            or res["launches"]["fused_lbs"] != 1):
+        raise RuntimeError(f"the Multi-HMR step in {chunks} pieces launched "
+                           f"{res['launches']}: not add_layernorm 48 times "
+                           f"and fused_lbs once")
+    del step, images, verts, transl
+    torch.cuda.empty_cache()
+    log(f"  Multi-HMR step at {MH_FRAMES} host frames of 896^2, {P} persons "
+        f"each: {res}")
+    return res
 
 
 def span_split(fn, iters):
@@ -4495,7 +4621,7 @@ ALL_PHASES = ("lbs", "serve", "raster", "video", "oracle", "vtiming",
               "zbuffer", "reconstruct", "rtiming", "stage", "backbone",
               "fit", "fitserve", "ftiming", "rwhole", "demo", "train",
               "remat", "pose2d", "asf", "quant", "mesh", "multihost",
-              "closure", "layernorm")
+              "closure", "layernorm", "multihmr")
 EXTRA_PHASES = ("vprofile",)
 
 
@@ -4722,11 +4848,17 @@ def main() -> int:
 
     if "layernorm" in phases:
         log("phase 28: add_layernorm on the HMR 2.0 step and at its "
-            "encoder's shape")
+            "encoder's shape, then with LayerScale at Multi-HMR's")
         ln, hmr2_launches = phase_layernorm(dev)
         for k in kernels:
             k["launches_hmr2"] = hmr2_launches[k["name"]]
         kernels.append(ln)
+    if "multihmr" in phases:
+        log(f"phase 29: the Multi-HMR step, {MH_FRAMES} frames of 896^2")
+        mh = phase_multihmr(dev)
+        log(json.dumps({"multihmr": mh, "card": card_line()}))
+        for k in kernels:
+            k["launches_multihmr"] = mh["launches"][k["name"]]
 
     log(f"chip_smoke: the whole script took "
         f"{time.perf_counter() - t_start:.1f} s")

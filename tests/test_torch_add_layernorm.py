@@ -106,6 +106,30 @@ def test_plain_version_equals_the_eager_chain(branch_dtype, out_dtype, D):
     assert none is None and torch.equal(h, want_h)
 
 
+def layerscale(D, device, seed=1):
+    """A LayerScale gamma (D,) float32, away from 1."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return 0.1 + 0.4 * torch.rand(D, generator=g, device=device)
+
+
+@pytest.mark.parametrize("out_dtype", DTYPES, ids=NAMES.get)
+@pytest.mark.parametrize("branch_dtype", DTYPES, ids=NAMES.get)
+def test_plain_version_with_a_scale_equals_the_eager_chain(branch_dtype,
+                                                           out_dtype):
+    """With LayerScale the new stream is ``x + gamma * branch``, the
+    product and the add each rounded in float32, as the eager chain."""
+    x, branch, norm = inputs(6, 64, branch_dtype, "cpu")
+    gamma = layerscale(64, "cpu")
+    want_x = x + gamma * branch
+    want_h = F.layer_norm(want_x, (64,), norm.weight, norm.bias,
+                          norm.eps).to(out_dtype)
+    with torch.no_grad():
+        got_x, got_h = hmr2.add_layernorm(x, branch, norm, out_dtype,
+                                          scale=gamma)
+    assert torch.equal(got_x, want_x) and torch.equal(got_h, want_h)
+    assert not torch.equal(got_x, x + branch)
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=NAMES.get)
 @pytest.mark.parametrize("depth", (1, 3))
 def test_vith_equals_the_block_by_block_eager_run(depth, dtype):
@@ -181,6 +205,34 @@ def test_cuda_kernel_matches_the_plain_version(cuda, D, M, out_dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("scaled", (False, True), ids=("plain", "scaled"))
+@pytest.mark.parametrize("out_dtype", DTYPES, ids=NAMES.get)
+def test_cuda_kernel_at_multihmr_shape(cuda, out_dtype, scaled):
+    """Multi-HMR's encoder: 64 frames of 4,097 tokens of 1,024, the bf16
+    branch with LayerScale and without.  The new stream bit-equal to the
+    plain version's, the normalised output under the bars above; a scale
+    of ones gives the unscaled kernel's bits."""
+    M, D = 64 * 4097, 1024
+    x, branch, norm = inputs(M, D, torch.bfloat16, cuda, seed=7)
+    gamma = layerscale(D, cuda) if scaled else None
+    with torch.no_grad():
+        got_x, got_h = hmr2.add_layernorm(x, branch, norm, out_dtype,
+                                          scale=gamma)
+        want_x, want_h = hmr2.add_layernorm_reference(x, branch, norm,
+                                                      out_dtype, scale=gamma)
+        ones_x, ones_h = hmr2.add_layernorm(
+            x, branch, norm, out_dtype,
+            scale=torch.ones(D, device=cuda) if not scaled else None)
+    torch.cuda.synchronize()
+    assert torch.equal(got_x, want_x)
+    hold(got_h, want_h)
+    if not scaled:
+        assert torch.equal(ones_x, got_x) and torch.equal(ones_h, got_h)
+    else:
+        assert not torch.equal(ones_x, got_x)
+
+
+@pytest.mark.cuda
 def test_cuda_refuses_what_it_does_not_take(cuda):
     x, branch, norm = inputs(64, 1024, torch.bfloat16, cuda)
     bf16 = torch.bfloat16
@@ -201,6 +253,10 @@ def test_cuda_refuses_what_it_does_not_take(cuda):
             hmr2.add_layernorm(x, branch[:32], norm, bf16)
         with pytest.raises(RuntimeError, match="bf16 or float32 output"):
             hmr2.add_layernorm(x, branch, norm, torch.float16)
+        for gamma in (torch.ones(1000, device=cuda),
+                      torch.ones(1024, device=cuda).half()):
+            with pytest.raises(RuntimeError, match="scale"):
+                hmr2.add_layernorm(x, branch, norm, bf16, scale=gamma)
         for args in ((x, branch.half(), norm, bf16),
                      (x.double(), branch, norm, bf16)):
             with pytest.raises(RuntimeError, match="expected one of"):

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from tpubody_torch.core import fused_lbs
+from tpubody_torch.core.rotations import rodrigues
 from tpubody_torch.models import params as tparams
 from tpubody_torch.models import smpl as tsmpl
 
@@ -325,3 +326,133 @@ def test_cuda_kernel_matches_plain(data, cuda, precision):
     with pytest.raises(ValueError, match="dtype"):
         fused_lbs.fused_lbs(lay._replace(planes=lay.planes.float()), feat,
                             g, None, precision)
+
+
+# -- SMPL-X: betas ⊕ expression on shapedirs ⊕ expr_dirs ---------------------
+def smplx_lbs_numpy(raw, rotmats, coeffs, trans):
+    """Plain float64 SMPL-X LBS: rest joints from the template shaped by
+    betas and expression, forward kinematics, the blended transforms."""
+    basis = np.concatenate([raw["shapedirs"], raw["expr_dirs"]], axis=-1)
+    parents = raw["parents"]
+    out = []
+    for R, c, t in zip(rotmats.astype(np.float64), coeffs, trans):
+        v = raw["v_template"] + basis @ c
+        j = raw["j_regressor"] @ v
+        v = v + raw["posedirs"] @ (R[1:] - np.eye(3)).reshape(-1)
+        G = np.zeros((len(parents), 4, 4))
+        for i, p in enumerate(parents):
+            local = np.eye(4)
+            local[:3, :3] = R[i]
+            local[:3, 3] = j[i] - (j[p] if p >= 0 else 0)
+            G[i] = local if p < 0 else G[p] @ local
+        G[:, :3, 3] -= np.einsum("jab,jb->ja", G[:, :3, :3], j)
+        T = np.einsum("vj,jab->vab", raw["weights"], G)
+        out.append(np.einsum("vab,vb->va", T[:, :3, :3], v)
+                   + T[:, :3, 3] + t)
+    return np.stack(out)
+
+
+@pytest.fixture(scope="module")
+def smplx_data():
+    rng = np.random.default_rng(11)
+    F = 6
+    raw = tparams.synthetic_numpy(n_joints=55, n_verts=500, seed=3)
+    poses = rng.normal(scale=0.3, size=(F, 55, 3)).astype(np.float32)
+    return dict(
+        raw=raw, model=tparams.params_from_numpy(raw),
+        rotmats=rodrigues(torch.as_tensor(poses)),
+        coeffs=rng.normal(size=(F, 20)).astype(np.float32),
+        trans=rng.normal(size=(F, 3)).astype(np.float32))
+
+
+@pytest.mark.parametrize("path", ("forward_batch_verts", "kernel layouts"))
+def test_smplx_expression_matches_plain_lbs(smplx_data, path):
+    """Betas ⊕ expression (20 a frame) through both CPU paths against the
+    plain float64 SMPL-X LBS: the torch-op LBS at the "highest" bar, the
+    fused LBS's plain version in bf16x3 at its relative bar.  The
+    expression moves the vertices."""
+    d = smplx_data
+    m = d["model"]
+    coeffs = torch.as_tensor(d["coeffs"])
+    trans = torch.as_tensor(d["trans"])
+    want = smplx_lbs_numpy(d["raw"], d["rotmats"].numpy(), d["coeffs"],
+                           d["trans"])
+    if path == "forward_batch_verts":
+        got = tsmpl.forward_batch_verts(m, d["rotmats"], coeffs, trans,
+                                        pose_is_rotmat=True)
+        _close(got.numpy(), want, "highest")
+    else:
+        lay = fused_lbs.model_layouts(m, 20)
+        assert lay.basis.shape[1] == 9 * 54 + 20 + 1 == 507
+        assert fused_lbs.model_layouts(m, 20) is lay
+        assert fused_lbs.model_layouts(m) is not lay
+        got = fused_lbs.lbs_forward_batch_fused(
+            m.v_template, m.shape_basis(20), m.posedirs, m.j_regressor,
+            m.weights, m.parents, d["rotmats"], coeffs, trans,
+            pose_is_rotmat=True, kernel_precision="bf16x3", layouts=lay)
+        _close(got.numpy(), want, "bf16x3")
+    betas_only = tsmpl.forward_batch_verts(m, d["rotmats"], coeffs[:, :10],
+                                           trans, pose_is_rotmat=True)
+    assert np.abs(betas_only.numpy() - want).max() > 1e-3
+
+
+def test_shape_basis_widths(smplx_data):
+    m = smplx_data["model"]
+    assert m.shape_basis() is m.shapedirs
+    assert m.shape_basis(14).shape == (500, 3, 14)
+    assert torch.equal(m.shape_basis(20)[..., 10:], m.expr_dirs)
+    with pytest.raises(ValueError, match="expression"):
+        m.shape_basis(21)
+
+
+def test_posed_joint_is_the_forward_pass_joint(smplx_data):
+    """The joint read off the prologue's transforms is the torch-op
+    forward's posed joint, and ``forward_batch_placed`` puts it at the
+    point it is given."""
+    d = smplx_data
+    m = d["model"]
+    coeffs = torch.as_tensor(d["coeffs"])
+    state = tsmpl.forward(m, d["rotmats"], coeffs, pose_is_rotmat=True)
+    layouts = fused_lbs.model_layouts(m, 20)
+    _, g = fused_lbs.lbs_prologue(layouts, m.parents, d["rotmats"], coeffs,
+                                  pose_is_rotmat=True)
+    point = torch.as_tensor(d["trans"])
+    for joint in (15, 0, 54):
+        got = fused_lbs.posed_joint(layouts, g, coeffs, joint)
+        torch.testing.assert_close(got, state.joints_posed[:, joint],
+                                   rtol=0, atol=1e-5)
+        verts, transl = tsmpl.forward_batch_placed(m, d["rotmats"], coeffs,
+                                                   joint, point)
+        torch.testing.assert_close(transl, point - got, rtol=0, atol=1e-5)
+        torch.testing.assert_close(verts, state.verts + transl[:, None],
+                                   rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", fused_lbs.PRECISIONS)
+def test_cuda_kernel_smplx_shape(cuda, precision):
+    """SMPL-X on the served path: F = 512 bodies, V = 10,475, K = 486 + 20
+    + 1 = 507, J = 55, with a translation, against the plain version on
+    the card at the bars of the J = 24 test."""
+    from tpubody_torch import native
+
+    m = tparams.synthetic(n_joints=55, n_verts=10475, seed=4).to(cuda)
+    lay = fused_lbs.model_layouts(m, 20)
+    rng = np.random.default_rng(6)
+    F = 512
+    poses = torch.as_tensor(rng.normal(scale=0.3, size=(F, 55, 3)),
+                            dtype=torch.float32, device=cuda)
+    coeffs = torch.as_tensor(rng.normal(size=(F, 20)), dtype=torch.float32,
+                             device=cuda)
+    trans = torch.as_tensor(rng.normal(size=(F, 3)), dtype=torch.float32,
+                            device=cuda)
+    feat, g = fused_lbs.lbs_prologue(lay, m.parents, poses, coeffs)
+    assert feat.shape == (F, 507) and g.shape == (F, 55, 12)
+    before = native.LAUNCHES["fused_lbs"]
+    got = fused_lbs.fused_lbs(lay, feat, g, trans, precision)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["fused_lbs"] == before + 1
+    want = fused_lbs.fused_lbs_reference(lay.basis, lay.wT, feat, g, trans,
+                                         precision)
+    assert got.shape == (F, 10475, 3)
+    _close(got.cpu().numpy(), want.cpu().numpy(), precision)

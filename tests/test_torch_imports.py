@@ -61,6 +61,7 @@ MODULES = [
     "tpubody_torch.models.hmr_quant",
     "tpubody_torch.models.hmr_train",
     "tpubody_torch.models.humanoid",
+    "tpubody_torch.models.multihmr",
     "tpubody_torch.models.params",
     "tpubody_torch.models.pose2d",
     "tpubody_torch.models.smpl",

@@ -94,15 +94,19 @@ def pack_vertex_planes(basis: torch.Tensor, wT: torch.Tensor) -> torch.Tensor:
         3, Vp // 16, 3 * KS + JS, 32, 8).contiguous()
 
 
-def model_layouts(model) -> LBSLayouts:
-    """The kernel layouts of ``model`` (a ``BodyModelParams``), computed on
-    first use and cached on the model."""
-    cached = model.cache.get("fused_lbs")
+def model_layouts(model, n_shape: Optional[int] = None) -> LBSLayouts:
+    """The kernel layouts of ``model`` (a ``BodyModelParams``) for
+    ``n_shape`` shape coefficients a frame (``model.shape_basis``: the
+    betas by default, betas ⊕ expression on a body with ``expr_dirs``),
+    computed on first use and cached on the model."""
+    n = model.num_betas if n_shape is None else n_shape
+    key = "fused_lbs" if n == model.num_betas else f"fused_lbs.shape{n}"
+    cached = model.cache.get(key)
     if cached is None:
-        cached = make_layouts(model.v_template, model.shapedirs,
+        cached = make_layouts(model.v_template, model.shape_basis(n),
                               model.posedirs, model.j_regressor,
                               model.weights)
-        model.cache["fused_lbs"] = cached
+        model.cache[key] = cached
     return cached
 
 
@@ -144,6 +148,20 @@ def lbs_prologue(layouts: LBSLayouts, parents: Sequence[int],
     ones = torch.ones((F, 1), dtype=pose_feat.dtype, device=pose_feat.device)
     feat = torch.cat([pose_feat, betas_f.to(pose_feat.dtype), ones], dim=1)
     return feat, g
+
+
+def posed_joint(layouts: LBSLayouts, g: torch.Tensor, beta: torch.Tensor,
+                joint: int) -> torch.Tensor:
+    """Where joint ``joint`` of the posed body lies before any translation
+    -> (F, 3): its rest place ``j`` on the shaped template moved by its
+    transform in :func:`lbs_prologue`'s ``g``, ``[R | t - R j]``.  beta as
+    :func:`lbs_prologue` takes it."""
+    F = g.shape[0]
+    betas_f = beta.expand(F, -1) if beta.dim() == 1 else beta
+    rest = layouts.base_joints[joint] + torch.einsum(
+        "cs,fs->fc", layouts.j_shape[joint], betas_f)
+    G = g[:, joint].view(F, 3, 4)
+    return torch.einsum("fab,fb->fa", G[..., :3], rest) + G[..., 3]
 
 
 def _split_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -10,14 +10,19 @@
 // reads it again.  At 512 frames (98,304 tokens of 1280) that is 3.02 GB an
 // add + LayerNorm pair, 64 pairs a batch.
 //
-// It computes, for row m of x (M, D) float32 and branch (M, D) bf16 or
-// float32 (add_layernorm_reference in hmr2.py is the eager chain):
+// It computes, for row m of x (M, D) float32, branch (M, D) bf16 or
+// float32 and an optional float32 per-channel scale gamma (D) on the
+// branch (add_layernorm_reference in hmr2.py is the eager chain):
 //   x_new[m] = fl(x[m] + float(branch[m]))      written if x_out is given
+//            = fl(x[m] + fl(gamma * float(branch[m])))   with a scale
 //   mean     = sum(x_new[m]) / D
 //   rstd     = rsqrt(sum((x_new[m] - mean)^2) / D + eps)
 //   h_out[m] = weight * ((x_new[m] - mean) * rstd) + bias, rounded to bf16
 //              (nearest even) or kept float32
-// The add is one __fadd_rn, so x_new has the bits of the eager x + branch.
+// The add is one __fadd_rn (after one __fmul_rn with a scale), so x_new
+// has the bits of the eager x + branch (x + gamma * branch).  A scale is
+// DINOv2's LayerScale (Multi-HMR's encoder, models/multihmr.py): the
+// kernel without one is the same instantiation as before it took one.
 // The statistics are float32, as F.layer_norm's on the card, summed in
 // another order, so the normalised row may differ from it in the last
 // bits of float32.
@@ -107,10 +112,11 @@ __device__ __forceinline__ float warp_sum(float s) {
   return s;
 }
 
-template <typename B, typename O, int kPerLane>
+template <typename B, typename O, int kPerLane, bool kScale>
 __global__ void __launch_bounds__(kWarps * 32)
 add_layernorm_kernel(const float* __restrict__ x,        // (M, D)
                      const B* __restrict__ branch,       // (M, D)
+                     const float* __restrict__ scale,    // (D) if kScale
                      const float* __restrict__ weight,   // (D)
                      const float* __restrict__ bias,     // (D)
                      float* __restrict__ x_out,          // (M, D) or null
@@ -140,6 +146,15 @@ add_layernorm_kernel(const float* __restrict__ x,        // (M, D)
     if (lane + 32 * k < chunks) {
       float w[kChunk];
       widen(raw[k], w);
+      if constexpr (kScale) {
+        const float4* g4 =
+            reinterpret_cast<const float4*>(scale + (lane + 32 * k) * kChunk);
+        const float4 g0 = __ldg(g4), g1 = __ldg(g4 + 1);
+        const float g[kChunk] = {g0.x, g0.y, g0.z, g0.w,
+                                 g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) w[j] = __fmul_rn(g[j], w[j]);
+      }
 #pragma unroll
       for (int j = 0; j < kChunk; ++j) {
         v[k][j] = __fadd_rn(v[k][j], w[j]);
@@ -181,44 +196,62 @@ add_layernorm_kernel(const float* __restrict__ x,        // (M, D)
   }
 }
 
-template <typename B, typename O, int kPerLane>
+template <typename B, typename O, bool kScale, int kPerLane>
 void launch(int per_lane, unsigned blocks, cudaStream_t stream,
-            const float* x, const void* branch, const float* weight,
-            const float* bias, float* x_out, void* h_out, int M, int D,
-            float eps) {
+            const float* x, const void* branch, const float* scale,
+            const float* weight, const float* bias, float* x_out,
+            void* h_out, int M, int D, float eps) {
   if (per_lane == kPerLane) {
-    add_layernorm_kernel<B, O, kPerLane><<<blocks, kWarps * 32, 0, stream>>>(
-        x, static_cast<const B*>(branch), weight, bias, x_out,
-        static_cast<O*>(h_out), M, D, eps);
+    add_layernorm_kernel<B, O, kPerLane, kScale>
+        <<<blocks, kWarps * 32, 0, stream>>>(
+            x, static_cast<const B*>(branch), scale, weight, bias, x_out,
+            static_cast<O*>(h_out), M, D, eps);
   } else if constexpr (kPerLane < kMaxPerLane) {
-    launch<B, O, kPerLane + 1>(per_lane, blocks, stream, x, branch, weight,
-                               bias, x_out, h_out, M, D, eps);
+    launch<B, O, kScale, kPerLane + 1>(per_lane, blocks, stream, x, branch,
+                                       scale, weight, bias, x_out, h_out, M,
+                                       D, eps);
   }
+}
+
+template <typename B, typename O>
+void launch_scale(int per_lane, unsigned blocks, cudaStream_t stream,
+                  const float* x, const void* branch, const float* scale,
+                  const float* weight, const float* bias, float* x_out,
+                  void* h_out, int M, int D, float eps) {
+  if (scale)
+    launch<B, O, true, 1>(per_lane, blocks, stream, x, branch, scale, weight,
+                          bias, x_out, h_out, M, D, eps);
+  else
+    launch<B, O, false, 1>(per_lane, blocks, stream, x, branch, scale,
+                           weight, bias, x_out, h_out, M, D, eps);
 }
 
 template <typename B>
 void launch_out(int out_bf16, int per_lane, unsigned blocks,
                 cudaStream_t stream, const float* x, const void* branch,
-                const float* weight, const float* bias, float* x_out,
-                void* h_out, int M, int D, float eps) {
+                const float* scale, const float* weight, const float* bias,
+                float* x_out, void* h_out, int M, int D, float eps) {
   if (out_bf16)
-    launch<B, __nv_bfloat16, 1>(per_lane, blocks, stream, x, branch, weight,
-                                bias, x_out, h_out, M, D, eps);
+    launch_scale<B, __nv_bfloat16>(per_lane, blocks, stream, x, branch,
+                                   scale, weight, bias, x_out, h_out, M, D,
+                                   eps);
   else
-    launch<B, float, 1>(per_lane, blocks, stream, x, branch, weight, bias,
-                        x_out, h_out, M, D, eps);
+    launch_scale<B, float>(per_lane, blocks, stream, x, branch, scale,
+                           weight, bias, x_out, h_out, M, D, eps);
 }
 
 }  // namespace
 
 // x (M, D) float32; branch (M, D) bf16 if branch_bf16 else float32;
-// weight, bias (D,) float32; x_out (M, D) float32 or null (x_new is then
+// scale (D,) float32 or null (no scale on the branch); weight, bias (D,)
+// float32; x_out (M, D) float32 or null (x_new is then
 // not written); h_out (M, D) bf16 if out_bf16 else float32.  All row-major
 // and 16-byte aligned, x_out apart from x; D a multiple of 8 from 8 to
 // 2048; M below 2^31.  One launch on `stream`; returns cudaGetLastError()
 // after it.
 extern "C" int tpubody_add_layernorm(const float* x, const void* branch,
-                                     int branch_bf16, const float* weight,
+                                     int branch_bf16, const float* scale,
+                                     const float* weight,
                                      const float* bias, float eps,
                                      float* x_out, void* h_out, int out_bf16,
                                      int M, int D, cudaStream_t stream) {
@@ -230,9 +263,9 @@ extern "C" int tpubody_add_layernorm(const float* x, const void* branch,
   const unsigned blocks = (unsigned)(((long long)M + kWarps - 1) / kWarps);
   if (branch_bf16)
     launch_out<__nv_bfloat16>(out_bf16, per_lane, blocks, stream, x, branch,
-                              weight, bias, x_out, h_out, M, D, eps);
+                              scale, weight, bias, x_out, h_out, M, D, eps);
   else
-    launch_out<float>(out_bf16, per_lane, blocks, stream, x, branch, weight,
-                      bias, x_out, h_out, M, D, eps);
+    launch_out<float>(out_bf16, per_lane, blocks, stream, x, branch, scale,
+                      weight, bias, x_out, h_out, M, D, eps);
   return (int)cudaGetLastError();
 }

@@ -98,10 +98,11 @@ def _merge(y: torch.Tensor) -> torch.Tensor:
 
 # -- the encoder: ViT-H/16 as ViTPose builds it -----------------------------
 class PatchEmbed(nn.Module):
-    def __init__(self, patch_size: int, dim: int):
+    def __init__(self, patch_size: int, dim: int,
+                 padding: int = PATCH_PADDING):
         super().__init__()
         self.proj = nn.Conv2d(3, dim, patch_size, stride=patch_size,
-                              padding=PATCH_PADDING)
+                              padding=padding)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) NHWC -> (B, tokens, dim), row-major over the
@@ -136,32 +137,38 @@ class Mlp(nn.Module):
 
 def add_layernorm_reference(x: torch.Tensor, branch: torch.Tensor,
                             norm: nn.LayerNorm, out_dtype: torch.dtype,
-                            keep_x: bool = True
+                            keep_x: bool = True,
+                            scale: Optional[torch.Tensor] = None
                             ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """The plain version of :func:`add_layernorm`: the eager chain, in its
-    order (the add, in float32 by type promotion, ``norm``, the cast)."""
-    x = x + branch
+    order (the add, in float32 by type promotion, after the product with
+    ``scale`` where there is one, ``norm``, the cast)."""
+    x = x + (branch if scale is None else scale * branch)
     h = norm(x).to(out_dtype)
     return (x if keep_x else None), h
 
 
 def add_layernorm(x: torch.Tensor, branch: torch.Tensor, norm: nn.LayerNorm,
-                  out_dtype: torch.dtype, keep_x: bool = True
+                  out_dtype: torch.dtype, keep_x: bool = True,
+                  scale: Optional[torch.Tensor] = None
                   ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """A residual add and the LayerNorm after it: float32 ``x`` (..., D)
     and ``branch`` (..., D) -> (``x + branch`` float32, or None unless
     ``keep_x``; ``norm`` of it in ``out_dtype``).  The statistics are
-    float32.
+    float32.  ``scale``: a float32 per-channel scale (D,) on the branch
+    (DINOv2's LayerScale), so that the new stream is ``x + scale *
+    branch``.
 
     On CUDA one launch of ``csrc/add_layernorm.cu``: ``branch`` bf16 or
     float32, ``out_dtype`` bf16 or float32, D a multiple of 8 up to 2048,
-    contiguous 16-byte aligned tensors and no autograd.  Its ``x + branch``
+    contiguous 16-byte aligned tensors and no autograd.  Its new stream
     has the bits of :func:`add_layernorm_reference`'s, its normalised
     output those of another float32 summation order.  Anything else it
     does not take raises RuntimeError.  The CPU runs
     :func:`add_layernorm_reference`."""
     if x.device.type == "cpu":
-        return add_layernorm_reference(x, branch, norm, out_dtype, keep_x)
+        return add_layernorm_reference(x, branch, norm, out_dtype, keep_x,
+                                       scale)
     D, dev = x.shape[-1], x.device
     M = x.numel() // max(D, 1)
     if (dev.type != "cuda" or D % 8 or not 8 <= D <= 2048 or M >= 2 ** 31
@@ -171,19 +178,24 @@ def add_layernorm(x: torch.Tensor, branch: torch.Tensor, norm: nn.LayerNorm,
             f"of 8 up to 2048, and a bf16 or float32 output; got "
             f"{tuple(x.shape)} on {dev}, {out_dtype} output")
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, branch, norm.weight, norm.bias)):
+            t is not None and t.requires_grad
+            for t in (x, branch, scale, norm.weight, norm.bias)):
         raise RuntimeError("add_layernorm has no backward on CUDA: call it "
                            "under torch.no_grad() or inference mode")
     f32 = (torch.float32,)
     native.expect("x", x, x.shape, f32, dev, aligned=True)
     native.expect("branch", branch, x.shape, _KERNEL_DTYPES, dev, aligned=True)
+    if scale is not None:
+        native.expect("scale", scale, (D,), f32, dev, aligned=True)
     native.expect("weight", norm.weight, (D,), f32, dev, aligned=True)
     native.expect("bias", norm.bias, (D,), f32, dev, aligned=True)
     x_out = torch.empty_like(x) if keep_x else None
     h = torch.empty(x.shape, dtype=out_dtype, device=dev)
     native.launch("add_layernorm", "tpubody_add_layernorm", dev,
                   x.data_ptr(), branch.data_ptr(),
-                  int(branch.dtype == torch.bfloat16), norm.weight.data_ptr(),
+                  int(branch.dtype == torch.bfloat16),
+                  None if scale is None else scale.data_ptr(),
+                  norm.weight.data_ptr(),
                   norm.bias.data_ptr(), norm.eps,
                   None if x_out is None else x_out.data_ptr(), h.data_ptr(),
                   int(out_dtype == torch.bfloat16), M, D)
@@ -305,15 +317,16 @@ class TransformerCrossAttn(nn.Module):
 
 
 class TransformerDecoder(nn.Module):
-    """One token (``num_tokens=1``, a zero token of ``token_dim=1``)
-    through ``depth`` layers of self-attention, cross-attention to the
-    context and a feed-forward network, pre-norm, float32 stream."""
+    """One token (``num_tokens=1``; HMR 2.0's is a zero token of
+    ``token_dim=1``) through ``depth`` layers of self-attention,
+    cross-attention to the context and a feed-forward network, pre-norm,
+    float32 stream."""
 
     def __init__(self, dim: int = 1024, depth: int = 6, heads: int = 8,
                  dim_head: int = 64, mlp_dim: int = 1024,
-                 context_dim: int = 1280):
+                 context_dim: int = 1280, token_dim: int = 1):
         super().__init__()
-        self.to_token_embedding = nn.Linear(1, dim)
+        self.to_token_embedding = nn.Linear(token_dim, dim)
         self.pos_embedding = nn.Parameter(torch.zeros(1, 1, dim))
         self.transformer = TransformerCrossAttn(dim, depth, heads, dim_head,
                                                 mlp_dim, context_dim)

@@ -115,6 +115,23 @@ class BodyModelParams:
     def device(self) -> torch.device:
         return self.v_template.device
 
+    def shape_basis(self, n: Optional[int] = None) -> torch.Tensor:
+        """(V, 3, n): the blend-shape basis of ``n`` coefficients a frame.
+        ``shapedirs`` itself for the betas (``n`` = ``num_betas``, the
+        default); for more, up to ``num_betas + num_expressions``, the first
+        ``n - num_betas`` expression directions after it, so that the
+        coefficients are betas ⊕ expression (SMPL-X)."""
+        S = self.num_betas
+        n = S if n is None else n
+        if n == S:
+            return self.shapedirs
+        if not S < n <= S + self.num_expressions:
+            raise ValueError(
+                f"{n} shape coefficients: the body has {S} betas and "
+                f"{self.num_expressions} expression directions")
+        return torch.cat([self.shapedirs, self.expr_dirs[:, :, :n - S]],
+                         dim=-1)
+
     def _map(self, fn) -> "BodyModelParams":
         changes = {k: fn(getattr(self, k)) for k in _TENSOR_FIELDS
                    if getattr(self, k) is not None}

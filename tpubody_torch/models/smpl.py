@@ -17,6 +17,7 @@ from tpubody_torch.core import lbs as lbs_lib
 from tpubody_torch.device import to_host
 from tpubody_torch.mesh import meshio
 from tpubody_torch.models.params import BodyModelParams
+from tpubody_torch.utils.profiling import span
 
 
 class BodyState(NamedTuple):
@@ -37,10 +38,11 @@ def forward(
     pose_is_rotmat: bool = False,
 ) -> BodyState:
     """One LBS forward pass: pose (..., J, 3) axis-angle (or (..., J, 3, 3)
-    rotation matrices), beta (..., S), trans (..., 3)."""
+    rotation matrices), beta (..., S) (or betas ⊕ expression on a body
+    with ``expr_dirs``: ``BodyModelParams.shape_basis``), trans (..., 3)."""
     out = lbs_lib.lbs(
         model.v_template,
-        model.shapedirs,
+        model.shape_basis(beta.shape[-1]),
         model.posedirs,
         model.j_regressor,
         model.weights,
@@ -80,6 +82,9 @@ def forward_batch_verts(
     kernel_precision: str = "bf16x3",
 ) -> torch.Tensor:
     """Vertices-only batched forward, the throughput path -> (F, V, 3).
+    ``beta`` may hold betas ⊕ expression on a body with ``expr_dirs``
+    (SMPL-X): the shape basis is then shapedirs ⊕ expr_dirs
+    (``BodyModelParams.shape_basis``), on both paths.
 
     ``use_kernel=None`` launches the fused CUDA kernel when the model's
     tensors are on CUDA and runs :func:`forward_batch` when they are on the
@@ -94,14 +99,45 @@ def forward_batch_verts(
         raise ValueError("use_kernel=True needs the body model on a CUDA "
                          f"device; it is on {model.device}")
     if use_kernel:
+        n = beta.shape[-1]
         return fused_lbs.lbs_forward_batch_fused(
-            model.v_template, model.shapedirs, model.posedirs,
+            model.v_template, model.shape_basis(n), model.posedirs,
             model.j_regressor, model.weights, model.parents,
             poses, beta, trans, pose_is_rotmat=pose_is_rotmat,
             kernel_precision=kernel_precision,
-            layouts=fused_lbs.model_layouts(model))
+            layouts=fused_lbs.model_layouts(model, n))
     return forward_batch(model, poses, beta, trans,
                          pose_is_rotmat=pose_is_rotmat).verts
+
+
+def forward_batch_placed(
+    model: BodyModelParams,
+    rotmats: torch.Tensor,  # (F, J, 3, 3)
+    beta: torch.Tensor,     # (F, n)
+    joint: int,
+    point: torch.Tensor,    # (F, 3)
+    kernel_precision: str = "bf16x3",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched vertices of bodies each placed so that its posed joint
+    ``joint`` lies at ``point`` -> (verts (F, V, 3), translation (F, 3)).
+    ``beta`` as :func:`forward_batch_verts` takes it.  On CUDA the joint
+    comes from its transform in the fused path's prologue
+    (:func:`fused_lbs.posed_joint`) and the translation goes into the
+    kernel; on the CPU from :func:`forward_batch`'s posed joints."""
+    if model.device.type != "cuda":
+        state = forward_batch(model, rotmats, beta, pose_is_rotmat=True)
+        transl = point - state.joints_posed[:, joint]
+        return state.verts + transl[:, None], transl
+    layouts = fused_lbs.model_layouts(model, beta.shape[-1])
+    with span("lbs.prologue"):
+        feat, g = fused_lbs.lbs_prologue(layouts, model.parents, rotmats,
+                                         beta, pose_is_rotmat=True)
+        transl = (point - fused_lbs.posed_joint(layouts, g, beta, joint)
+                  ).contiguous()
+    with span("fused_lbs"):
+        verts = fused_lbs.fused_lbs(layouts, feat, g, transl,
+                                    kernel_precision)
+    return verts, transl
 
 
 def regress_joints(model: BodyModelParams, verts: torch.Tensor) -> torch.Tensor:

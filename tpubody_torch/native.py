@@ -157,7 +157,7 @@ def library() -> ctypes.CDLL:
         lib.tpubody_fused_stage_launches.restype = ci
         lib.tpubody_int8_requant.argtypes = [vp] * 10 + [ci] * 3 + [vp]
         lib.tpubody_int8_requant.restype = ci
-        lib.tpubody_add_layernorm.argtypes = [vp, vp, ci, vp, vp,
+        lib.tpubody_add_layernorm.argtypes = [vp, vp, ci, vp, vp, vp,
                                               ctypes.c_float, vp, vp, ci, ci,
                                               ci, vp]
         lib.tpubody_add_layernorm.restype = ci

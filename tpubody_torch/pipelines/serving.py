@@ -88,10 +88,16 @@ CHUNK_FRAMES = 256
 class HMRSMPLStep:
     """images (B, H, W, 3) float32 NHWC -> (posed verts (B, V, 3) fp32,
     weak-perspective cam (B, 3) fp32).  ``hmr`` (the HMR module, HMR 2.0's,
-    or the int8 ``hmr_quant.QuantizedHMR``: each ``head(backbone(images))``)
-    and ``body`` are on ``device``; ``image_shape`` is one request's input
-    shape.  ``to(device)`` is a replica on another device (a sharded server
-    makes one a device).
+    the int8 ``hmr_quant.QuantizedHMR`` or Multi-HMR's: each
+    ``head(backbone(images))``) and ``body`` are on ``device``;
+    ``image_shape`` is one request's input shape.  ``to(device)`` is a
+    replica on another device (a sharded server makes one a device).
+
+    A model of several persons a frame (Multi-HMR: ``hmr.persons`` P, its
+    ``cam`` the point where joint ``hmr.anchor_joint`` goes) answers
+    (posed verts (B, P, V, 3), translation (B, P, 3)): each body's
+    translation puts that joint of the posed body at the point, and goes
+    into the LBS with the body.
 
     A batch in host memory of at least two chunks of ``CHUNK_FRAMES``
     frames, on a CUDA step, is copied in chunk by chunk on a side stream
@@ -162,16 +168,25 @@ class HMRSMPLStep:
                                              device=self.device)
                 features = self.hmr.backbone(images)
             out = self.hmr.head(features)
-            verts = smpl_lib.forward_batch_verts(
-                self.body, out.rotmats, out.shape, None, pose_is_rotmat=True)
-        return verts, out.cam
+            persons = getattr(self.hmr, "persons", None)
+            if persons is None:
+                verts = smpl_lib.forward_batch_verts(
+                    self.body, out.rotmats, out.shape, None,
+                    pose_is_rotmat=True)
+                return verts, out.cam
+            verts, transl = smpl_lib.forward_batch_placed(
+                self.body, out.rotmats, out.shape, self.hmr.anchor_joint,
+                out.cam)
+        return (verts.view(-1, persons, *verts.shape[1:]),
+                transl.view(-1, persons, 3))
 
 
-ARCHS = ("hmr_r50", "hmr2_vith")
+ARCHS = ("hmr_r50", "hmr2_vith", "multihmr_896_l")
 
 
-def hmr_smpl_step(dtype: torch.dtype = torch.bfloat16, n_joints: int = 24,
-                  n_verts: int = 6890, stem: str = "conv7",
+def hmr_smpl_step(dtype: torch.dtype = torch.bfloat16,
+                  n_joints: Optional[int] = None,
+                  n_verts: Optional[int] = None, stem: str = "conv7",
                   image_size: Optional[int] = None, quantize: bool = False,
                   calib_images=None, device: DeviceLike = "cuda",
                   arch: str = "hmr_r50",
@@ -181,13 +196,19 @@ def hmr_smpl_step(dtype: torch.dtype = torch.bfloat16, n_joints: int = 24,
     which on CUDA is the fused LBS kernel.
 
     ``arch``: "hmr_r50", HMR (ResNet-50 + IEF, ``models/hmr``; ``stem``
-    picks its first convolution), or "hmr2_vith", HMR 2.0 (ViT-H/16 and a
-    cross-attention decoder, ``models/hmr2``), which takes 256^2 images.
-    ``image_size`` defaults to the architecture's (HMR 2.0 takes no
-    other).  ``mean_params``: the regressor's start (144 + 10 + 3,), the
-    6D pose as ``rot6d_to_rotmat`` reads it; by default
+    picks its first convolution), "hmr2_vith", HMR 2.0 (ViT-H/16 and a
+    cross-attention decoder, ``models/hmr2``), which takes 256^2 images,
+    or "multihmr_896_l", Multi-HMR (DINOv2 ViT-L/14 and a cross-attention
+    head, ``models/multihmr``), which takes 896^2 images and answers 8
+    SMPL-X bodies a frame.  The body: ``load_or_synthetic`` SMPL at
+    ``n_joints`` 24 and ``n_verts`` 6890 by default, SMPL-X at 55 and
+    10475 for Multi-HMR.  ``image_size`` defaults to the architecture's
+    (the transformers take no other).
+    ``mean_params``: the regressor's start, the 6D pose as
+    ``rot6d_to_rotmat`` reads it: (144 + 10 + 3,) by default
     ``hmr.default_mean_params()`` (``tpubody``'s) for HMR and
-    ``hmr.identity_mean_params()`` for HMR 2.0.
+    ``hmr.identity_mean_params()`` for HMR 2.0; (318 + 10 + 3,)
+    ``multihmr.default_mean_params()`` for Multi-HMR.
 
     ``quantize=True`` serves the int8 PTQ backbone (``models/hmr_quant``:
     the HMR built in float32, BatchNorm folded, per-channel weight and
@@ -205,12 +226,21 @@ def hmr_smpl_step(dtype: torch.dtype = torch.bfloat16, n_joints: int = 24,
             f"quantize=True: the int8 path (models/hmr_quant) quantizes "
             f"HMR's ResNet-50 only, not {arch}")
     dev = resolve(device)
-    if arch == "hmr2_vith":
-        from tpubody_torch.models import hmr2 as hmr2_lib
+    if arch in ("hmr2_vith", "multihmr_896_l"):
+        if arch == "hmr2_vith":
+            from tpubody_torch.models import hmr2 as lib
 
-        model = hmr2_lib.create_hmr2(mean_params, dtype=dtype, device=dev)
+            model = lib.create_hmr2(mean_params, dtype=dtype, device=dev)
+        else:
+            from tpubody_torch.models import multihmr as lib
+
+            model = lib.create_multihmr(mean_params, dtype=dtype, device=dev)
+            if n_joints not in (None, lib.N_JOINTS):
+                raise ValueError(f"n_joints={n_joints}: Multi-HMR poses "
+                                 f"SMPL-X's {lib.N_JOINTS} joints")
+            n_joints = lib.N_JOINTS
         if image_size not in (None, model.image_size):
-            raise ValueError(f"image_size={image_size}: HMR 2.0 takes "
+            raise ValueError(f"image_size={image_size}: {arch} takes "
                              f"{model.image_size}^2 images")
         image_size = model.image_size
     else:
@@ -218,9 +248,13 @@ def hmr_smpl_step(dtype: torch.dtype = torch.bfloat16, n_joints: int = 24,
         model = hmr_lib.create_hmr(
             mean_params, dtype=torch.float32 if quantize else dtype,
             stem=stem, device=dev)
+    kind, full = (("smplx", params_lib.SMPLX_NUM_VERTS)
+                  if arch == "multihmr_896_l"
+                  else ("smpl", params_lib.SMPL_NUM_VERTS))
+    n_verts = n_verts or full
     body = params_lib.load_or_synthetic(
-        "smpl", n_joints=n_joints, n_verts=n_verts, seed=0,
-        warn=n_verts == 6890, device=dev)
+        kind, n_joints=n_joints or 24, n_verts=n_verts, seed=0,
+        warn=n_verts == full, device=dev)
     if quantize:
         from tpubody_torch.models import hmr_quant
 
