@@ -259,8 +259,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                im2col, products, epilogue, head, LBS) and each step's peak
                memory; the int8 step on the same 512 frames from host
                memory (the main path: copied in chunks of
-               serving.CHUNK_FRAMES under the backbone), the counters
-               zeroed just before, must go in ceil(512 / CHUNK_FRAMES)
+               serving.chunk_frames, 256 at 224^2, under the backbone), the
+               counters zeroed just before, must go in ceil(512 / 256)
                chunks and launch int8_requant 53 times a chunk and
                fused_lbs once (launches_step, chunks in the result); int8_requant at each launch of one backbone at
                batch 512 (seeded sums, bit-equal to its plain version),
@@ -301,9 +301,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
   28. layernorm — add_layernorm (csrc/add_layernorm.cu): one HMR 2.0
                step (hmr_smpl_step(arch="hmr2_vith"), the cell's path) at
                512 frames of 256^2 from host memory (copied in chunks of
-               serving.CHUNK_FRAMES under the encoder), the counters
-               zeroed just before it, must go in ceil(512 /
-               CHUNK_FRAMES) chunks and launch it 64 times a chunk
+               serving.chunk_frames, 256 at 256^2, under the encoder), the
+               counters zeroed just before it, must go in ceil(512 / 256)
+               chunks and launch it 64 times a chunk
                (the kernel line's launches, and launches_hmr2 for the
                others).  Then at the encoder's
                shape, 98,304 tokens of 1280 (512 frames of 192), a bf16
@@ -322,9 +322,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                same two forms at the same bars, timed beside its bound.
   29. multihmr — one Multi-HMR step (hmr_smpl_step(arch=
                "multihmr_896_l"), the cell's path) at 64 frames of 896^2
-               from host memory, in one piece, the counters zeroed just
+               from host memory, in 4 chunks of serving.chunk_frames (16
+               at 896^2) under the encoder, the counters zeroed just
                before it: (64, 8, 10475, 3) finite vertices and (64, 8,
-               3) translations, 48 add_layernorm launches and one
+               3) translations, 48 add_layernorm launches a chunk and one
                fused_lbs (launches_multihmr for every kernel).
 
 It then prints the whole script's time, the kernel line (each kernel with the card's name and power
@@ -3788,14 +3789,14 @@ def phase_quant(dev):
             peak[name] = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
         split_ms = span_split(lambda: int8(big), 5)
     # The main path: the same frames from host memory, copied in chunks
-    # under the backbone (serving.CHUNK_FRAMES), the counters zeroed just
+    # under the backbone (serving.chunk_frames), the counters zeroed just
     # before: int8_requant 53 times a chunk, fused_lbs once.
     host = big.cpu().numpy()
     chunks = int8._chunks(host)
-    if chunks != -(-QUANT_BATCH // serving.CHUNK_FRAMES):
+    chunk = serving.chunk_frames(host.shape[1:])
+    if chunks != -(-QUANT_BATCH // chunk):
         raise RuntimeError(f"the int8 step takes {QUANT_BATCH} host frames "
-                           f"in {chunks} pieces, not in chunks of "
-                           f"{serving.CHUNK_FRAMES}")
+                           f"in {chunks} pieces, not in chunks of {chunk}")
     native.reset_launches()
     with torch.inference_mode():
         int8(host)
@@ -3926,10 +3927,10 @@ def hmr2_step_launches(dev):
     images = np.random.default_rng(28).normal(
         size=(LN_FRAMES, 256, 256, 3)).astype(np.float32)
     chunks = step._chunks(images)
-    if chunks != -(-LN_FRAMES // serving.CHUNK_FRAMES):
+    chunk = serving.chunk_frames(images.shape[1:])
+    if chunks != -(-LN_FRAMES // chunk):
         raise RuntimeError(f"the HMR 2.0 step takes {LN_FRAMES} host frames "
-                           f"in {chunks} pieces, not in chunks of "
-                           f"{serving.CHUNK_FRAMES}")
+                           f"in {chunks} pieces, not in chunks of {chunk}")
     native.reset_launches()
     verts, cam = step(images)
     torch.cuda.synchronize()
@@ -4092,8 +4093,9 @@ MH_FRAMES = 64            # phase 29: the Multi-HMR cell's batch
 
 def phase_multihmr(dev):
     """One Multi-HMR step (hmr_smpl_step(arch="multihmr_896_l"), the cell's
-    path) at MH_FRAMES frames of 896^2 from host memory, the counters
-    zeroed just before it -> its result (shapes, launches)."""
+    path) at MH_FRAMES frames of 896^2 from host memory, copied in chunks
+    under the encoder, the counters zeroed just before it -> its result
+    (shapes, chunks, launches)."""
     import torch
 
     from tpubody_torch import native
@@ -4104,6 +4106,7 @@ def phase_multihmr(dev):
     images = np.random.default_rng(29).normal(
         size=(MH_FRAMES, 896, 896, 3)).astype(np.float32)
     chunks = step._chunks(images)
+    want_chunks = -(-MH_FRAMES // serving.chunk_frames(images.shape[1:]))
     native.reset_launches()
     t0 = time.perf_counter()
     verts, transl = step(images)
@@ -4118,11 +4121,13 @@ def phase_multihmr(dev):
                            f"{res['transl']}")
     if not (torch.isfinite(verts).all() and torch.isfinite(transl).all()):
         raise RuntimeError("non-finite Multi-HMR output")
-    if (chunks != 1 or res["launches"]["add_layernorm"] != 48
+    if (chunks != want_chunks
+            or res["launches"]["add_layernorm"] != 48 * chunks
             or res["launches"]["fused_lbs"] != 1):
-        raise RuntimeError(f"the Multi-HMR step in {chunks} pieces launched "
-                           f"{res['launches']}: not add_layernorm 48 times "
-                           f"and fused_lbs once")
+        raise RuntimeError(f"the Multi-HMR step in {chunks} pieces (not "
+                           f"{want_chunks}) launched {res['launches']}: not "
+                           f"add_layernorm 48 times a chunk and fused_lbs "
+                           f"once")
     del step, images, verts, transl
     torch.cuda.empty_cache()
     log(f"  Multi-HMR step at {MH_FRAMES} host frames of 896^2, {P} persons "

@@ -81,8 +81,21 @@ def _to_numpy(t):
 
 
 # -- the flagship step ------------------------------------------------------
-# Frames a chunk when HMRSMPLStep pipelines its copy in.
+# When HMRSMPLStep pipelines its copy in, a chunk holds the largest power of
+# two of frames, up to CHUNK_FRAMES, whose float32 frames fit CHUNK_BYTES;
+# the step chunks a host batch of at least two such chunks.
 CHUNK_FRAMES = 256
+CHUNK_BYTES = 256 << 20
+
+
+def chunk_frames(frame_shape: Sequence[int]) -> int:
+    """The frames of a copy chunk for frames of ``frame_shape`` (no batch
+    dim), by the rule above; at least 1."""
+    frame = 4 * int(np.prod(frame_shape))
+    n = CHUNK_FRAMES
+    while n > 1 and n * frame > CHUNK_BYTES:
+        n //= 2
+    return n
 
 
 class HMRSMPLStep:
@@ -99,11 +112,13 @@ class HMRSMPLStep:
     translation puts that joint of the posed body at the point, and goes
     into the LBS with the body.
 
-    A batch in host memory of at least two chunks of ``CHUNK_FRAMES``
-    frames, on a CUDA step, is copied in chunk by chunk on a side stream
-    while the card runs the backbone on the chunk before (every backbone
-    works frame by frame); the head and the LBS then run once on the whole
-    batch.  Any other batch is copied in one piece."""
+    A chunk is sized by a frame's bytes (:func:`chunk_frames`: the largest
+    power of two of frames, up to ``CHUNK_FRAMES``, whose float32 frames
+    fit ``CHUNK_BYTES``).  A batch in host memory of at least two chunks,
+    on a CUDA step, is copied in chunk by chunk on a side stream while the
+    card runs the backbone on the chunk before (every backbone works frame
+    by frame; the last chunk may be ragged); the head and the LBS then run
+    once on the whole batch.  Any other batch is copied in one piece."""
 
     def __init__(self, hmr, body, device: DeviceLike, image_size: int):
         self.hmr = hmr
@@ -119,15 +134,17 @@ class HMRSMPLStep:
                            self.body.to(dev), dev, self.image_shape[0])
 
     def _chunks(self, images) -> int:
-        """How many pieces the step copies ``images`` in: ceil(B /
-        CHUNK_FRAMES) on CUDA for a host batch of at least two chunks,
-        else 1."""
+        """How many pieces the step copies ``images`` in: ceil(B / chunk),
+        the chunk :func:`chunk_frames` of a frame, on CUDA for a host batch
+        of at least two chunks, else 1."""
         on_host = (not isinstance(images, torch.Tensor)
                    or images.device.type == "cpu")
-        if (self.device.type != "cuda" or not on_host
-                or len(images) < 2 * CHUNK_FRAMES):
+        if self.device.type != "cuda" or not on_host:
             return 1
-        return -(-len(images) // CHUNK_FRAMES)
+        chunk = chunk_frames(np.shape(images)[1:])
+        if len(images) < 2 * chunk:
+            return 1
+        return -(-len(images) // chunk)
 
     def _backbone_in_chunks(self, images, chunk: int) -> torch.Tensor:
         """The backbone's features of a host batch, copied in ``chunk``
@@ -161,7 +178,8 @@ class HMRSMPLStep:
 
         with span("step"):
             if self._chunks(images) > 1:
-                features = self._backbone_in_chunks(images, CHUNK_FRAMES)
+                features = self._backbone_in_chunks(
+                    images, chunk_frames(np.shape(images)[1:]))
             else:
                 with span("step.h2d"):
                     images = torch.as_tensor(images, dtype=torch.float32,
