@@ -327,6 +327,20 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                before it: (64, 8, 10475, 3) finite vertices and (64, 8,
                3) translations, 48 add_layernorm launches a chunk and one
                fused_lbs (launches_multihmr for every kernel).
+  30. sapiens — Sapiens-2B pose's attention half at a 16-frame chunk of
+               3,072 tokens in 32 heads of 60, the published heads run as
+               they are and zero-padded to 64 (the model's route), held to
+               each other and timed in turns; then one keypoint_step at 32
+               frames of 1024^2 from host memory, in 2 chunks of 16 under
+               the encoder, the counters zeroed just before it: (32, 308,
+               2) finite keypoints, (32, 308) confidences in [0, 1], 96
+               add_layernorm launches a chunk (launches_sapiens for every
+               kernel).  Then add_layernorm at the encoder's shape, 49,152
+               tokens of 1920 (a chunk of 16 frames of 3,072), where a
+               lane's last chunk of 8 lies past the row's end, in the
+               step's two forms at phase 28's bars, timed beside its byte
+               bound (the add_layernorm entry's "sapiens" when phase 28
+               ran).
 
 It then prints the whole script's time, the kernel line (each kernel with the card's name and power
 limit), the card's name and power limit, and, last,
@@ -334,7 +348,7 @@ limit), the card's name and power limit, and, last,
 ``--phases a,b`` runs a subset (names: lbs, serve, bench, raster, video,
 oracle, vtiming, zbuffer, reconstruct, rtiming, stage, backbone, fit,
 fitserve, ftiming, rwhole, demo, train, remat, pose2d, asf, quant, mesh,
-multihost, closure, layernorm, multihmr, and the extra
+multihost, closure, layernorm, multihmr, sapiens, and the extra
 vprofile: a torch.profiler pass over the video path) and prints no result
 line: a development aid.
 """
@@ -4135,6 +4149,126 @@ def phase_multihmr(dev):
     return res
 
 
+SP_FRAMES = 32            # phase 30: the Sapiens cell's batch
+SP_CHUNK = 16             # a copy chunk of 1024^2 frames
+SP_TOKENS, SP_DIM, SP_HEADS = 3072, 1920, 32
+
+
+def phase_sapiens(dev):
+    """Sapiens-2B pose (models/sapiens.py): its attention half at one copy
+    chunk (SP_CHUNK frames of 3,072 tokens, 32 heads of 60) by the two
+    routes, the published heads run as they are (SDPA picks its own
+    kernel for a width that is not a multiple of 8) and zero-padded to 64
+    in the weights (hmr2.Attention, which the model serves), held to each
+    other and timed in turns; then one keypoint_step at SP_FRAMES host
+    frames of 1024^2 in 2 chunks under the encoder, the counters zeroed
+    just before it: (32, 308, 2) finite keypoints, (32, 308) confidences
+    in [0, 1], 96 add_layernorm launches a chunk."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpubody_torch import native
+    from tpubody_torch.models import hmr2
+    from tpubody_torch.pipelines import serving
+
+    res = {}
+    B, N, D, H = SP_CHUNK, SP_TOKENS, SP_DIM, SP_HEADS
+    d = D // H
+    gen = torch.Generator(device=dev).manual_seed(30)
+    with torch.inference_mode():
+        padded = hmr2.Attention(D, H).to(dev).to(torch.bfloat16).eval()
+        sd = {k: (0.02 * torch.randn(v.shape, generator=gen, device=dev)
+                  ).to(torch.bfloat16)
+              for k, v in padded.state_dict().items()}
+        padded.load_state_dict(sd)
+        x = torch.randn((B, N, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+
+        def published():
+            q, k, v = F.linear(x, sd["qkv.weight"], sd["qkv.bias"]).view(
+                B, N, 3, H, d).permute(2, 0, 3, 1, 4)
+            y = F.scaled_dot_product_attention(q, k, v)
+            return F.linear(y.transpose(1, 2).reshape(B, N, D),
+                            sd["proj.weight"], sd["proj.bias"])
+
+        a, b = published().float(), padded(x).float()
+        res["routes_max_diff"] = float((a - b).abs().max())
+        res["routes_scale"] = float(a.abs().max())
+        del a, b
+        if res["routes_max_diff"] > 0.02 * res["routes_scale"]:
+            raise RuntimeError(f"the padded attention is not the published "
+                               f"one: {res}")
+        times = {"published_ms": [], "padded_ms": []}
+        for _ in range(2):
+            times["published_ms"].append(time_ms(published, iters=20))
+            times["padded_ms"].append(time_ms(lambda: padded(x), iters=20))
+        res.update(times)
+        del x, padded
+    torch.cuda.empty_cache()
+
+    step = serving.keypoint_step(device=dev)
+    images = np.random.default_rng(30).normal(
+        size=(SP_FRAMES, 1024, 1024, 3)).astype(np.float32)
+    chunks = step._chunks(images)
+    native.reset_launches()
+    t0 = time.perf_counter()
+    keypoints, conf = step(images)
+    torch.cuda.synchronize()
+    res.update(frames=SP_FRAMES, chunks=chunks,
+               cold_s=time.perf_counter() - t0,
+               keypoints=list(keypoints.shape), conf=list(conf.shape),
+               launches=dict(native.LAUNCHES))
+    if (tuple(keypoints.shape) != (SP_FRAMES, 308, 2)
+            or tuple(conf.shape) != (SP_FRAMES, 308)
+            or not bool(torch.isfinite(keypoints).all())
+            or not bool(((conf >= 0) & (conf <= 1)).all())):
+        raise RuntimeError(f"the Sapiens step answers {res}")
+    if chunks != 2 or res["launches"]["add_layernorm"] != 96 * chunks:
+        raise RuntimeError(f"the Sapiens step in {chunks} pieces launched "
+                           f"{res['launches']}: not 2 chunks of 96 "
+                           f"add_layernorm")
+    del step, images, keypoints, conf
+    torch.cuda.empty_cache()
+    log(f"  Sapiens attention half at {B} x {N} tokens, {H} heads of {d}, "
+        f"and the step at {SP_FRAMES} host frames of 1024^2: {res}")
+    res["layernorm"] = phase_layernorm_sapiens(dev)
+    return res
+
+
+def phase_layernorm_sapiens(dev):
+    """add_layernorm at the Sapiens encoder's shape (SP_CHUNK frames of
+    3,072 tokens of 1,920: 240 chunks of 8 a row, 7.5 a lane of 32, so
+    each row's last lane stops half way), held to its plain version in
+    both of the step's forms and timed beside the byte bound -> its
+    result."""
+    import torch
+
+    from tpubody_torch.models import hmr2
+
+    M, D = SP_CHUNK * SP_TOKENS, SP_DIM
+    x, branch, norm, _ = layernorm_inputs(M, D, dev, 30)
+    res = {"shape": {"tokens": M, "dim": D, "branch": "bf16",
+                     "out": "bf16"}}
+    with torch.no_grad():
+        res.update(hold_layernorm_forms(x, branch, norm))
+        res["kernel_ms"] = time_ms(lambda: hmr2.add_layernorm(
+            x, branch, norm, torch.bfloat16), 50, 5)
+        res["last_block_ms"] = time_ms(lambda: hmr2.add_layernorm(
+            x, branch, norm, torch.float32, keep_x=False), 50, 5)
+    del x, branch, norm
+    torch.cuda.empty_cache()
+    nbytes = M * D * (4 + 2 + 4 + 2)
+    res.update(gb=nbytes / 1e9, bound_ms=nbytes / PEAK_BYTES * 1e3)
+    res["share"] = res["bound_ms"] / res["kernel_ms"]
+    log(f"  add_layernorm at Sapiens' {M} x {D} ({res['gb']:.3f} GB): "
+        f"{res['kernel_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms (share "
+        f"{res['share']:.3f}); max diff {res['max_diff']:.3g}, unequal "
+        f"share {res['unequal_share']:.3g}; float32 output without x_new "
+        f"{res['last_block_ms']:.4f} ms, max diff "
+        f"{res['last_block_max_diff']:.3g}")
+    return res
+
+
 def span_split(fn, iters):
     """Run ``fn`` ``iters`` times under ``torch.profiler`` -> {span name:
     device ms a call} from the program's own spans
@@ -4626,7 +4760,7 @@ ALL_PHASES = ("lbs", "serve", "raster", "video", "oracle", "vtiming",
               "zbuffer", "reconstruct", "rtiming", "stage", "backbone",
               "fit", "fitserve", "ftiming", "rwhole", "demo", "train",
               "remat", "pose2d", "asf", "quant", "mesh", "multihost",
-              "closure", "layernorm", "multihmr")
+              "closure", "layernorm", "multihmr", "sapiens")
 EXTRA_PHASES = ("vprofile",)
 
 
@@ -4864,6 +4998,16 @@ def main() -> int:
         log(json.dumps({"multihmr": mh, "card": card_line()}))
         for k in kernels:
             k["launches_multihmr"] = mh["launches"][k["name"]]
+
+    if "sapiens" in phases:
+        log(f"phase 30: Sapiens' 60-wide heads by two routes, then the "
+            f"keypoint step, {SP_FRAMES} frames of 1024^2")
+        sp = phase_sapiens(dev)
+        log(json.dumps({"sapiens": sp, "card": card_line()}))
+        for k in kernels:
+            k["launches_sapiens"] = sp["launches"][k["name"]]
+            if k["name"] == "add_layernorm":
+                k["sapiens"] = sp["layernorm"]
 
     log(f"chip_smoke: the whole script took "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -64,6 +64,7 @@ MODULES = [
     "tpubody_torch.models.multihmr",
     "tpubody_torch.models.params",
     "tpubody_torch.models.pose2d",
+    "tpubody_torch.models.sapiens",
     "tpubody_torch.models.smpl",
     "tpubody_torch.pipelines.animate",
     "tpubody_torch.pipelines.demo",

@@ -56,6 +56,7 @@ norm2, mlp.fc1, mlp.fc2}``, ``backbone.last_norm``,
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -112,16 +113,67 @@ class PatchEmbed(nn.Module):
 
 
 class Attention(nn.Module):
+    """Multi-head self-attention, ``heads`` heads of ``dim // heads``.
+
+    A head width that is not a multiple of 8 (Sapiens' 60) is served padded
+    to the next multiple of 8: ``qkv`` holds zero output rows after each
+    head's q, k and v and ``proj`` zero input columns after each head's, so
+    that SDPA sees a width its fused kernels take, the scale passed as the
+    published width's.  The zero columns add nothing to Q K^T, and A V's
+    zero columns meet zero weights in ``proj``.  The state dict holds the
+    published shapes ((3 dim, dim) ``qkv``, (dim, dim) ``proj``) either
+    way: the padding is dropped when it is saved and made when it is
+    loaded."""
+
     def __init__(self, dim: int, heads: int):
         super().__init__()
         self.heads = heads
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.head_dim = dim // heads
+        self.padded = -(-self.head_dim // 8) * 8
+        inner = heads * self.padded
+        self.qkv = nn.Linear(dim, 3 * inner)
+        self.proj = nn.Linear(inner, dim)
+        if self.padded != self.head_dim:
+            self.register_state_dict_post_hook(_unpad_heads)
+            self.register_load_state_dict_pre_hook(_pad_heads)
+            self.load_state_dict(self.state_dict())    # zero the padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q, k, v = _heads(_linear(self.qkv, x), 3, self.heads)
-        return _linear(self.proj, _merge(
-            F.scaled_dot_product_attention(q, k, v)))
+        # SDPA's own default for unpadded heads, the same double
+        y = F.scaled_dot_product_attention(
+            q, k, v, scale=1.0 / math.sqrt(self.head_dim))
+        return _linear(self.proj, _merge(y))
+
+
+def _unpad_heads(module: Attention, state_dict, prefix: str,
+                 local_metadata) -> None:
+    """Drop the padding of each head from the saved ``qkv`` and ``proj``."""
+    h, d, p = module.heads, module.head_dim, module.padded
+    for name in ("qkv.weight", "qkv.bias"):
+        t = state_dict[prefix + name]
+        state_dict[prefix + name] = t.reshape(
+            3, h, p, *t.shape[1:])[:, :, :d].reshape(3 * h * d,
+                                                     *t.shape[1:])
+    t = state_dict[prefix + "proj.weight"]
+    state_dict[prefix + "proj.weight"] = t.reshape(
+        len(t), h, p)[:, :, :d].reshape(len(t), h * d)
+
+
+def _pad_heads(module: Attention, state_dict, prefix: str, *args) -> None:
+    """Pad each head of a published ``qkv`` and ``proj`` with zeros."""
+    h, d, p = module.heads, module.head_dim, module.padded
+    for name in ("qkv.weight", "qkv.bias"):
+        t = state_dict.get(prefix + name)
+        if t is not None and len(t) == 3 * h * d:
+            t = t.reshape(3, h, d, *t.shape[1:])
+            state_dict[prefix + name] = F.pad(
+                t, [0, 0] * (t.dim() - 3) + [0, p - d]).reshape(
+                    3 * h * p, *t.shape[3:])
+    t = state_dict.get(prefix + "proj.weight")
+    if t is not None and t.shape[-1] == h * d:
+        state_dict[prefix + "proj.weight"] = F.pad(
+            t.reshape(len(t), h, d), [0, p - d]).reshape(len(t), h * p)
 
 
 class Mlp(nn.Module):
@@ -213,16 +265,25 @@ class Block(nn.Module):
 
 class ViTH(nn.Module):
     """(B, image_size, image_size, 3) NHWC -> (B, tokens, dim) float32
-    tokens after ``last_norm``."""
+    tokens after ``last_norm``.
+
+    ``cls_pos``: the position table has a class entry first, added to
+    every token (ViTPose's, HMR 2.0's); without it (Sapiens') the table
+    holds one entry a token.  ``spans``: the prefix of the spans the
+    encoder records (``<spans>.backbone``, ``.attention``, ``.mlp``)."""
 
     def __init__(self, image_size: int = 256, crop_width: int = 192,
                  patch_size: int = 16, dim: int = 1280, depth: int = 32,
-                 heads: int = 16, mlp_dim: int = 5120):
+                 heads: int = 16, mlp_dim: int = 5120, cls_pos: bool = True,
+                 spans: str = "hmr2"):
         super().__init__()
         self.image_size, self.crop_width = image_size, crop_width
+        self.cls_pos = cls_pos
+        self.spans = {k: f"{spans}.{k}"
+                      for k in ("backbone", "attention", "mlp")}
         tokens = (image_size // patch_size) * (crop_width // patch_size)
         self.patch_embed = PatchEmbed(patch_size, dim)
-        self.pos_embed = nn.Parameter(torch.zeros(1, tokens + 1, dim))
+        self.pos_embed = nn.Parameter(torch.zeros(1, tokens + cls_pos, dim))
         self.blocks = nn.ModuleList(Block(dim, heads, mlp_dim)
                                     for _ in range(depth))
         self.last_norm = nn.LayerNorm(dim, eps=ENCODER_EPS)
@@ -232,20 +293,23 @@ class ViTH(nn.Module):
             raise ValueError(f"ViTH takes (B, {self.image_size}, "
                              f"{self.image_size}, 3) images, got "
                              f"{tuple(images.shape)}")
-        with span("hmr2.backbone"):
+        with span(self.spans["backbone"]):
             lo = (self.image_size - self.crop_width) // 2
             x = self.patch_embed(images[:, :, lo:lo + self.crop_width])
-            x = x + (self.pos_embed[:, 1:] + self.pos_embed[:, :1])
+            if self.cls_pos:
+                x = x + (self.pos_embed[:, 1:] + self.pos_embed[:, :1])
+            else:
+                x = x + self.pos_embed
             # Each half ends with its residual add and the LayerNorm after
             # it (norm2, the next block's norm1, or last_norm in float32) in
             # one add_layernorm; the last drops the stream.
             first = self.blocks[0]
             h = first.norm1(x).to(first.attn.qkv.weight.dtype)
             for block, nxt in zip(self.blocks, [*self.blocks[1:], None]):
-                with span("hmr2.attention"):
+                with span(self.spans["attention"]):
                     x, h = add_layernorm(x, block.attn(h), block.norm2,
                                          block.mlp.fc1.weight.dtype)
-                with span("hmr2.mlp"):
+                with span(self.spans["mlp"]):
                     if nxt is None:
                         return add_layernorm(x, block.mlp(h), self.last_norm,
                                              torch.float32, keep_x=False)[1]

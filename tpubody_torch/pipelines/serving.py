@@ -9,7 +9,8 @@
     ``max_delay_ms``.
   * Clients submit from any thread; one dispatch thread owns the device.
 
-:func:`hmr_smpl_step` builds the flagship images -> (verts, cam) step.
+:func:`hmr_smpl_step` builds the flagship images -> (verts, cam) step,
+:func:`keypoint_step` the images -> (keypoints, confidences) step.
 """
 from __future__ import annotations
 
@@ -98,40 +99,23 @@ def chunk_frames(frame_shape: Sequence[int]) -> int:
     return n
 
 
-class HMRSMPLStep:
-    """images (B, H, W, 3) float32 NHWC -> (posed verts (B, V, 3) fp32,
-    weak-perspective cam (B, 3) fp32).  ``hmr`` (the HMR module, HMR 2.0's,
-    the int8 ``hmr_quant.QuantizedHMR`` or Multi-HMR's: each
-    ``head(backbone(images))``) and ``body`` are on ``device``;
-    ``image_shape`` is one request's input shape.  ``to(device)`` is a
-    replica on another device (a sharded server makes one a device).
-
-    A model of several persons a frame (Multi-HMR: ``hmr.persons`` P, its
-    ``cam`` the point where joint ``hmr.anchor_joint`` goes) answers
-    (posed verts (B, P, V, 3), translation (B, P, 3)): each body's
-    translation puts that joint of the posed body at the point, and goes
-    into the LBS with the body.
+class CopyInStep:
+    """The copy in that the served steps share: a step holds ``device``
+    and runs its model's frame-by-frame ``backbone`` (:meth:`_backbone`)
+    on the images it is given.
 
     A chunk is sized by a frame's bytes (:func:`chunk_frames`: the largest
     power of two of frames, up to ``CHUNK_FRAMES``, whose float32 frames
     fit ``CHUNK_BYTES``).  A batch in host memory of at least two chunks,
     on a CUDA step, is copied in chunk by chunk on a side stream while the
-    card runs the backbone on the chunk before (every backbone works frame
-    by frame; the last chunk may be ragged); the head and the LBS then run
-    once on the whole batch.  Any other batch is copied in one piece."""
+    card runs the backbone on the chunk before (the last chunk may be
+    ragged); any other batch is copied in one piece.  Each copy is a span
+    ``step.h2d``."""
 
-    def __init__(self, hmr, body, device: DeviceLike, image_size: int):
-        self.hmr = hmr
-        self.body = body
-        self.device = torch.device(device)
-        self.image_shape = (image_size, image_size, 3)
+    device: torch.device
 
-    def to(self, device: DeviceLike) -> "HMRSMPLStep":
-        from tpubody_torch.dist import mesh as mesh_lib
-
-        dev = resolve(device)
-        return HMRSMPLStep(mesh_lib.copy_to(self.hmr, dev),
-                           self.body.to(dev), dev, self.image_shape[0])
+    def _backbone(self, images: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
 
     def _chunks(self, images) -> int:
         """How many pieces the step copies ``images`` in: ceil(B / chunk),
@@ -169,22 +153,61 @@ class HMRSMPLStep:
                 batch[part].copy_(host[part], non_blocking=True)
             if cuda:
                 compute.wait_event(copy.record_event())
-            features.append(self.hmr.backbone(batch[part]))
+            features.append(self._backbone(batch[part]))
         return torch.cat(features)
+
+    def _copy_in_backbone(self, images) -> torch.Tensor:
+        """The backbone's features of ``images``, copied in by the rule
+        above; call it inside the step's span."""
+        if self._chunks(images) > 1:
+            return self._backbone_in_chunks(
+                images, chunk_frames(np.shape(images)[1:]))
+        with span("step.h2d"):
+            images = torch.as_tensor(images, dtype=torch.float32,
+                                     device=self.device)
+        return self._backbone(images)
+
+
+class HMRSMPLStep(CopyInStep):
+    """images (B, H, W, 3) float32 NHWC -> (posed verts (B, V, 3) fp32,
+    weak-perspective cam (B, 3) fp32).  ``hmr`` (the HMR module, HMR 2.0's,
+    the int8 ``hmr_quant.QuantizedHMR`` or Multi-HMR's: each
+    ``head(backbone(images))``) and ``body`` are on ``device``;
+    ``image_shape`` is one request's input shape.  ``to(device)`` is a
+    replica on another device (a sharded server makes one a device).
+
+    A model of several persons a frame (Multi-HMR: ``hmr.persons`` P, its
+    ``cam`` the point where joint ``hmr.anchor_joint`` goes) answers
+    (posed verts (B, P, V, 3), translation (B, P, 3)): each body's
+    translation puts that joint of the posed body at the point, and goes
+    into the LBS with the body.
+
+    The images go in by :class:`CopyInStep`'s rule (every backbone works
+    frame by frame); the head and the LBS then run once on the whole
+    batch."""
+
+    def __init__(self, hmr, body, device: DeviceLike, image_size: int):
+        self.hmr = hmr
+        self.body = body
+        self.device = torch.device(device)
+        self.image_shape = (image_size, image_size, 3)
+
+    def to(self, device: DeviceLike) -> "HMRSMPLStep":
+        from tpubody_torch.dist import mesh as mesh_lib
+
+        dev = resolve(device)
+        return HMRSMPLStep(mesh_lib.copy_to(self.hmr, dev),
+                           self.body.to(dev), dev, self.image_shape[0])
+
+    def _backbone(self, images: torch.Tensor) -> torch.Tensor:
+        return self.hmr.backbone(images)
 
     @torch.inference_mode()
     def __call__(self, images) -> Tuple[torch.Tensor, torch.Tensor]:
         from tpubody_torch.models import smpl as smpl_lib
 
         with span("step"):
-            if self._chunks(images) > 1:
-                features = self._backbone_in_chunks(
-                    images, chunk_frames(np.shape(images)[1:]))
-            else:
-                with span("step.h2d"):
-                    images = torch.as_tensor(images, dtype=torch.float32,
-                                             device=self.device)
-                features = self.hmr.backbone(images)
+            features = self._copy_in_backbone(images)
             out = self.hmr.head(features)
             persons = getattr(self.hmr, "persons", None)
             if persons is None:
@@ -197,6 +220,37 @@ class HMRSMPLStep:
                 out.cam)
         return (verts.view(-1, persons, *verts.shape[1:]),
                 transl.view(-1, persons, 3))
+
+
+class KeypointStep(CopyInStep):
+    """images (B, S, S, 3) float32 NHWC -> (keypoints (B, K, 2) in the
+    frames' pixels, confidences (B, K)), float32.  ``model`` (Sapiens pose,
+    ``models/sapiens.py``: ``head(backbone(images))`` heatmap logits and
+    ``decode(logits)``) is on ``device``; ``image_size`` is S.
+
+    The images go in by :class:`CopyInStep`'s rule; the head and the
+    decode then run once on the whole batch."""
+
+    def __init__(self, model, device: DeviceLike, image_size: int):
+        self.model = model
+        self.device = torch.device(device)
+        self.image_shape = (image_size, image_size, 3)
+
+    def to(self, device: DeviceLike) -> "KeypointStep":
+        from tpubody_torch.dist import mesh as mesh_lib
+
+        dev = resolve(device)
+        return KeypointStep(mesh_lib.copy_to(self.model, dev), dev,
+                            self.image_shape[0])
+
+    def _backbone(self, images: torch.Tensor) -> torch.Tensor:
+        return self.model.backbone(images)
+
+    @torch.inference_mode()
+    def __call__(self, images) -> Tuple[torch.Tensor, torch.Tensor]:
+        with span("step"):
+            features = self._copy_in_backbone(images)
+            return self.model.decode(self.model.head(features))
 
 
 ARCHS = ("hmr_r50", "hmr2_vith", "multihmr_896_l")
@@ -284,6 +338,30 @@ def hmr_smpl_step(dtype: torch.dtype = torch.bfloat16,
             hmr_quant.quantize_hmr(model, calib_images),
             mean_params=mean_params)
     return HMRSMPLStep(model, body, dev, image_size)
+
+
+KEYPOINT_ARCHS = ("sapiens_2b_pose",)
+
+
+def keypoint_step(arch: str = "sapiens_2b_pose",
+                  dtype: torch.dtype = torch.bfloat16,
+                  device: DeviceLike = "cuda") -> KeypointStep:
+    """The keypoint serving step: images -> (keypoints (B, K, 2) in the
+    frames' pixels, confidences (B, K)), a heatmap model with seeded
+    random weights.
+
+    ``arch``: "sapiens_2b_pose", Sapiens-2B pose (``models/sapiens``: a
+    ViT of 1,920 x 48 over the middle 1024 x 768 of 1024^2 frames, a
+    deconvolution heatmap head), 308 keypoints; its ``dtype`` compute
+    precision.  On CUDA the model takes no autograd (the step runs in
+    inference mode)."""
+    if arch not in KEYPOINT_ARCHS:
+        raise ValueError(f"arch={arch!r}: expected one of {KEYPOINT_ARCHS}")
+    from tpubody_torch.models import sapiens
+
+    dev = resolve(device)
+    model = sapiens.create_sapiens_pose(dtype=dtype, device=dev)
+    return KeypointStep(model, dev, model.image_size)
 
 
 class FitSMPLHStep:
