@@ -340,7 +340,14 @@ Phases, each of which raises on failure (the exit code is then non-zero):
                lane's last chunk of 8 lies past the row's end, in the
                step's two forms at phase 28's bars, timed beside its byte
                bound (the add_layernorm entry's "sapiens" when phase 28
-               ran).
+               ran).  The step must launch soft_argmax twice (its one
+               decode).  Then soft_argmax (csrc/soft_argmax.cu) at the
+               decode's shape, 32 frames of 256 x 192 heatmaps of 308
+               keypoints, held to pose2d.soft_argmax in float64 (x, y
+               within 1e-3 px, confidences within 1e-5), the same bits on
+               a second call, timed beside its byte bound (1.94 GB at 3.35
+               TB/s) and the plain version (the kernel line's seventh
+               entry).
 
 It then prints the whole script's time, the kernel line (each kernel with the card's name and power
 limit), the card's name and power limit, and, last,
@@ -4163,7 +4170,9 @@ def phase_sapiens(dev):
     other and timed in turns; then one keypoint_step at SP_FRAMES host
     frames of 1024^2 in 2 chunks under the encoder, the counters zeroed
     just before it: (32, 308, 2) finite keypoints, (32, 308) confidences
-    in [0, 1], 96 add_layernorm launches a chunk."""
+    in [0, 1], 96 add_layernorm launches a chunk and SA_LAUNCHES
+    soft_argmax; then add_layernorm and soft_argmax at the step's shapes
+    (phase_layernorm_sapiens, phase_soft_argmax)."""
     import torch
     import torch.nn.functional as F
 
@@ -4223,15 +4232,17 @@ def phase_sapiens(dev):
             or not bool(torch.isfinite(keypoints).all())
             or not bool(((conf >= 0) & (conf <= 1)).all())):
         raise RuntimeError(f"the Sapiens step answers {res}")
-    if chunks != 2 or res["launches"]["add_layernorm"] != 96 * chunks:
+    if (chunks != 2 or res["launches"]["add_layernorm"] != 96 * chunks
+            or res["launches"]["soft_argmax"] != SA_LAUNCHES):
         raise RuntimeError(f"the Sapiens step in {chunks} pieces launched "
                            f"{res['launches']}: not 2 chunks of 96 "
-                           f"add_layernorm")
+                           f"add_layernorm and {SA_LAUNCHES} soft_argmax")
     del step, images, keypoints, conf
     torch.cuda.empty_cache()
     log(f"  Sapiens attention half at {B} x {N} tokens, {H} heads of {d}, "
         f"and the step at {SP_FRAMES} host frames of 1024^2: {res}")
     res["layernorm"] = phase_layernorm_sapiens(dev)
+    res["soft_argmax"] = phase_soft_argmax(dev, res["launches"]["soft_argmax"])
     return res
 
 
@@ -4266,6 +4277,81 @@ def phase_layernorm_sapiens(dev):
         f"share {res['unequal_share']:.3g}; float32 output without x_new "
         f"{res['last_block_ms']:.4f} ms, max diff "
         f"{res['last_block_max_diff']:.3g}")
+    return res
+
+
+SA_LAUNCHES = 2           # soft_argmax launches a decode: slices, merge
+SA_XY_BAR, SA_CONF_BAR = 1e-3, 1e-5
+
+
+def soft_argmax_inputs(B, h, w, K, dev, seed):
+    """(B, h, w, K) float32 heatmap logits: -d^2 / (2 sigma^2) about a
+    random centre a keypoint, sigma 1.5 to 6 pixels, plus noise."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    yy = torch.arange(h, device=dev).view(1, h, 1, 1).float()
+    xx = torch.arange(w, device=dev).view(1, 1, w, 1).float()
+    cy = torch.rand((B, 1, 1, K), generator=g, device=dev) * h
+    cx = torch.rand((B, 1, 1, K), generator=g, device=dev) * w
+    sigma = 1.5 + 4.5 * torch.rand((B, 1, 1, K), generator=g, device=dev)
+    logits = torch.randn((B, h, w, K), generator=g, device=dev).mul_(0.5)
+    return logits.sub_(((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * sigma ** 2))
+
+
+def phase_soft_argmax(dev, step_launches):
+    """soft_argmax (csrc/soft_argmax.cu) at the Sapiens decode's shape,
+    SP_FRAMES frames of 256 x 192 heatmaps of 308 keypoints, held to its
+    plain version (pose2d.soft_argmax) in float64 (x, y within SA_XY_BAR
+    px, the confidence within SA_CONF_BAR; the float32 eager chain's
+    distance reported beside it), the same bits on a second call, timed
+    beside its byte bound and the plain version in float32 -> the kernel
+    line's entry."""
+    import torch
+
+    from tpubody_torch.models import pose2d
+
+    B, h, w, K = SP_FRAMES, 256, 192, 308
+    logits = soft_argmax_inputs(B, h, w, K, dev, 30)
+    res = {"name": "soft_argmax", "route": "cuda",
+           "source": "tpubody_torch/csrc/soft_argmax.cu", "replaces": None,
+           "shape": {"frames": B, "heatmap": [h, w], "keypoints": K},
+           "bound_by": "bytes", "launches": step_launches}
+    with torch.inference_mode():
+        got = pose2d.soft_argmax_decode(logits, 4)
+        again = pose2d.soft_argmax_decode(logits, 4)
+        exact = pose2d.soft_argmax(logits.double(), 4)
+        eager = pose2d.soft_argmax(logits, 4)
+        for name, want in (("", exact), ("eager_", eager)):
+            res[name + "max_xy_diff"] = float(
+                (got[..., :2].double() - want[..., :2]).abs().max())
+            res[name + "max_conf_diff"] = float(
+                (got[..., 2].double() - want[..., 2]).abs().max())
+        res["eager_vs_exact_max_xy_diff"] = float(
+            (eager[..., :2].double() - exact[..., :2]).abs().max())
+        res["same_bits"] = bool(torch.equal(got, again))
+        del exact, eager
+        torch.cuda.empty_cache()
+        res["kernel_ms"] = time_ms(
+            lambda: pose2d.soft_argmax_decode(logits, 4), 50, 5)
+        res["plain_ms"] = time_ms(lambda: pose2d.soft_argmax(logits, 4), 5, 1)
+    del logits, got, again
+    torch.cuda.empty_cache()
+    nbytes = B * h * w * K * 4
+    res.update(ms=res["kernel_ms"], gb=nbytes / 1e9,
+               bound_ms=nbytes / PEAK_BYTES * 1e3)
+    res["share"] = res["bound_ms"] / res["kernel_ms"]
+    log(f"  soft_argmax at ({B}, {h}, {w}, {K}) ({res['gb']:.3f} GB): "
+        f"{res['kernel_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms (share "
+        f"{res['share']:.3f}), plain version {res['plain_ms']:.3f} ms; max "
+        f"diff x/y {res['max_xy_diff']:.3g} px, conf "
+        f"{res['max_conf_diff']:.3g} (float64 plain version; float32 "
+        f"{res['eager_max_xy_diff']:.3g} px, which is "
+        f"{res['eager_vs_exact_max_xy_diff']:.3g} px from float64); same "
+        f"bits twice {res['same_bits']}")
+    if (res["max_xy_diff"] > SA_XY_BAR or res["max_conf_diff"] > SA_CONF_BAR
+            or not res["same_bits"]):
+        raise RuntimeError(f"soft_argmax is not its plain version: {res}")
     return res
 
 
@@ -5004,6 +5090,7 @@ def main() -> int:
             f"keypoint step, {SP_FRAMES} frames of 1024^2")
         sp = phase_sapiens(dev)
         log(json.dumps({"sapiens": sp, "card": card_line()}))
+        kernels.append(sp["soft_argmax"])
         for k in kernels:
             k["launches_sapiens"] = sp["launches"][k["name"]]
             if k["name"] == "add_layernorm":

@@ -432,8 +432,9 @@ def test_cuda_bf16_step_against_the_reference_at_a_chunk(cuda):
     """The cell's step at the published widths on one 16-frame chunk of
     1024^2 frames from host memory, against the float32 reference on the
     same seeded weights: within the cell's limits (the comparison of
-    ``benchmark/compare.py``), 96 ``add_layernorm`` launches, (16, 308, 2)
-    keypoints and (16, 308) confidences inside (0, 1)."""
+    ``benchmark/compare.py``), 96 ``add_layernorm`` launches, the decode's
+    two ``soft_argmax`` launches, (16, 308, 2) keypoints and (16, 308)
+    confidences inside (0, 1)."""
     cfg, cell_config = harness.config_of(CONFIG)
     inputs = cell_config.make_inputs(cfg, SEED, cuda)
     step = cell_config.build(cfg, inputs, cuda)
@@ -444,6 +445,7 @@ def test_cuda_bf16_step_against_the_reference_at_a_chunk(cuda):
     keypoints, conf = step(host)
     torch.cuda.synchronize()
     assert native.LAUNCHES["add_layernorm"] == 96
+    assert native.LAUNCHES["soft_argmax"] == 2
     assert keypoints.shape == (16, 308, 2) and conf.shape == (16, 308)
     assert bool(((conf > 0) & (conf < 1)).all())
     ref = tuple(t.cpu().numpy() for t in

@@ -25,6 +25,7 @@ Images and heatmaps are NHWC at the interface, as in ``tpubody``.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Dict, NamedTuple, Tuple
 
@@ -33,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpubody_torch import native
 from tpubody_torch.device import DeviceLike, resolve
 
 N_KEYPOINTS = 67          # BODY_25 + left hand 21 + right hand 21
@@ -135,6 +137,45 @@ def soft_argmax(logits: torch.Tensor,
     y = y * stride + (stride - 1) / 2.0
     conf = torch.clamp(pmax * (2.0 * math.pi * 4.0), 0.0, 1.0)
     return torch.stack([x, y, conf], dim=-1)
+
+
+def soft_argmax_decode(logits: torch.Tensor,
+                       stride: int = HEATMAP_STRIDE) -> torch.Tensor:
+    """:func:`soft_argmax` for inference: (B, h, w, K) float32 logits ->
+    (B, K, 3) x, y in input pixels + confidence, float32.
+
+    On CUDA two launches of ``csrc/soft_argmax.cu``, which reads the
+    logits once: contiguous float32 (B, h, w, K), h, w and K at least 1,
+    and no autograd (the kernel has no backward).  Its sums are taken in
+    another order than :func:`soft_argmax`'s, so the answers differ from
+    it in the last bits.  Anything else it does not take raises
+    RuntimeError.  The CPU runs :func:`soft_argmax`."""
+    if logits.device.type == "cpu":
+        return soft_argmax(logits, stride)
+    dev = logits.device
+    if dev.type != "cuda" or logits.dim() != 4 or 0 in logits.shape[1:]:
+        raise RuntimeError(
+            f"soft_argmax_decode takes (B, h, w, K) logits on CUDA or the "
+            f"CPU, h, w and K at least 1; got {tuple(logits.shape)} on {dev}")
+    if torch.is_grad_enabled() and logits.requires_grad:
+        raise RuntimeError("soft_argmax_decode has no backward on CUDA: call "
+                           "it under torch.no_grad() or inference mode")
+    B, h, w, K = logits.shape
+    native.expect("logits", logits, logits.shape, torch.float32, dev)
+    out = torch.empty((B, K, 3), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    vec = int(K % 4 == 0 and logits.data_ptr() % 16 == 0)
+    slices = ctypes.c_int()
+    with torch.cuda.device(dev):
+        native.check(native.library().tpubody_soft_argmax_slices(
+            B, h, w, K, vec, ctypes.byref(slices)), "soft_argmax slices")
+    part = torch.empty((B, slices.value, 4, K), dtype=torch.float32,
+                       device=dev)
+    native.launch("soft_argmax", "tpubody_soft_argmax", dev,
+                  logits.data_ptr(), part.data_ptr(), out.data_ptr(),
+                  B, h, w, K, vec, slices.value, float(stride), count=2)
+    return out
 
 
 def detect(model: Pose2D, images: torch.Tensor) -> Pose2DOutput:

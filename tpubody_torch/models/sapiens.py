@@ -8,7 +8,8 @@ heatmap logits of the frame's middle 768 columns, the contract of
 ``pose2d.Pose2D.forward``, so ``pose2d.detect`` and ``pose2d.soft_argmax``
 read them unchanged (their keypoints are in the crop's pixels);
 :meth:`SapiensPose.decode` gives keypoints in the frame's pixels and their
-confidences.
+confidences by ``pose2d.soft_argmax_decode``, the same soft-argmax in one
+pass over the logits on CUDA (``csrc/soft_argmax.cu``).
 
 The encoder is mmpretrain's ``VisionTransformer`` at Sapiens' ``sapiens_2b``
 widths, which is ViTPose's lineage: ``hmr2.ViTH`` with a position table of
@@ -31,7 +32,7 @@ and every Linear take ``dtype`` operands and accumulate in float32; the
 LayerNorms, the softmax and the residual stream are float32.  The head's
 convolutions take ``dtype`` operands in channels-last and write ``dtype``;
 the final 1 x 1 convolution sums in float32 and writes float32 logits (its
-bias float32); the decode is float32.
+bias float32); the decode is float32, inference only on CUDA.
 
 State-dict names, unconfirmed against a released checkpoint, are
 mmpretrain's and mmpose's: ``backbone.patch_embed.projection``,
@@ -127,8 +128,8 @@ class SapiensPose(nn.Module):
     columns (h x w the patch grid).  Every width is a constructor argument;
     the defaults are Sapiens-2B's on Goliath.
 
-    Inference only on CUDA: the encoder's ``hmr2.add_layernorm`` has no
-    backward there."""
+    Inference only on CUDA: the encoder's ``hmr2.add_layernorm`` and the
+    decode's ``pose2d.soft_argmax_decode`` have no backward there."""
 
     def __init__(self, image_size: int = 1024, crop_width: int = 768,
                  patch_size: int = 16, dim: int = 1920, depth: int = 48,
@@ -160,11 +161,13 @@ class SapiensPose(nn.Module):
     def decode(self, logits: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Logits (B, H, W, K) -> (keypoints (B, K, 2) in the frame's
-        pixels, confidences (B, K)), float32: ``pose2d.soft_argmax`` (the
-        expectation under each keypoint's spatial softmax, its peak
-        probability as the confidence), shifted by the crop's offset."""
+        pixels, confidences (B, K)), float32: ``pose2d.soft_argmax_decode``
+        (the expectation under each keypoint's spatial softmax, its peak
+        probability as the confidence; on CUDA ``csrc/soft_argmax.cu``,
+        which reads the logits once, on the CPU ``pose2d.soft_argmax``),
+        shifted by the crop's offset."""
         with span("sapiens.decode"):
-            kp = pose2d.soft_argmax(logits, self.stride)
+            kp = pose2d.soft_argmax_decode(logits, self.stride)
             return kp[..., :2] + self.offset, kp[..., 2]
 
 

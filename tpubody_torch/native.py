@@ -37,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Launch counts per kernel name, bumped by the wrappers.
 LAUNCHES: Dict[str, int] = {"fused_lbs": 0, "fused_raster": 0, "zbuffer": 0,
                             "fused_stage": 0, "int8_requant": 0,
-                            "add_layernorm": 0}
+                            "add_layernorm": 0, "soft_argmax": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -161,6 +161,12 @@ def library() -> ctypes.CDLL:
                                               ctypes.c_float, vp, vp, ci, ci,
                                               ci, vp]
         lib.tpubody_add_layernorm.restype = ci
+        lib.tpubody_soft_argmax_slices.argtypes = [ci] * 5 + [
+            ctypes.POINTER(ci)]
+        lib.tpubody_soft_argmax_slices.restype = ci
+        lib.tpubody_soft_argmax.argtypes = [vp, vp, vp] + [ci] * 6 + [
+            ctypes.c_float, vp]
+        lib.tpubody_soft_argmax.restype = ci
         lib.tpubody_cuda_error_string.argtypes = [ci]
         lib.tpubody_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
